@@ -1,5 +1,5 @@
 # Developer driver (the reference ships a Makefile with release/test/format
-# targets, Makefile:7-37; these are the TPU-framework equivalents).
+# targets, Makefile:7-37; these are the JAX-framework equivalents).
 
 PY ?= python
 
@@ -36,4 +36,4 @@ clean:
 	find . -name __pycache__ -type d -exec rm -rf {} + 2>/dev/null || true
 
 lint:
-	@command -v ruff >/dev/null 2>&1 && ruff check tpuslam tools tests bench.py __graft_entry__.py || $(PY) tools/lint.py
+	@command -v ruff >/dev/null 2>&1 && ruff check tpuslam tools tests bench.py chip_smoke.py __graft_entry__.py || $(PY) tools/lint.py

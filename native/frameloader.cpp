@@ -1,6 +1,6 @@
 // tpuslam native frame loader.
 //
-// The TPU-native analog of the reference's C++ Preprocessor host I/O
+// The analog of the reference's C++ Preprocessor host I/O
 // (reference src/preprocessing/preprocessor.cpp:24-141): directory globbing,
 // lexical ordering, and frame decode — restructured as a multi-threaded
 // batch decoder that fills caller-provided buffers so Python-side prefetch

@@ -3,7 +3,7 @@
 These are *independent test oracles* implementing the same algorithm
 semantics as the reference C++ (cited per function), written in
 straightforward NumPy/Python.  They intentionally favour clarity over speed
-and are used by the golden tests to validate the vectorised TPU paths.
+and are used by the golden tests to validate the vectorised JAX paths.
 """
 
 from __future__ import annotations

@@ -132,7 +132,7 @@ def test_brief_rotation_changes_descriptor(blurred):
 
 
 def test_quantized_brief_agrees_with_exact(crop, blurred):
-    """The MXU (angle-quantised) BRIEF path must agree with the exact path
+    """The matmul (angle-quantised) BRIEF path must agree with the exact path
     to within a few bits per descriptor."""
     from tpuslam.frontend.brief import (
         build_brief_bin_weights,

@@ -2,7 +2,7 @@
 
 The golden oracle is an independent NumPy implementation of the reference's
 per-pixel inverse-distortion sampling (common.hpp:127-173), checked against
-the precomputed-gather TPU path.
+the precomputed-gather device path.
 """
 
 from pathlib import Path

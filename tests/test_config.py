@@ -21,6 +21,52 @@ from tpuslam.config.yaml_io import load_opencv_yaml
 CONFIGS = Path(__file__).resolve().parent.parent / "configs"
 
 
+def _pyyaml_reference(path):
+    """The PyYAML-based OpenCV loader, kept as the parser's test reference."""
+    yaml = pytest.importorskip("yaml")
+
+    class Loader(yaml.SafeLoader):
+        pass
+
+    def matrix(loader, node):
+        m = loader.construct_mapping(node, deep=True)
+        return np.asarray(m["data"], np.float64).reshape(int(m["rows"]), int(m["cols"]))
+
+    Loader.add_constructor("tag:yaml.org,2002:opencv-matrix", matrix)
+    lines = Path(path).read_text().splitlines()
+    if lines and lines[0].startswith("%YAML"):
+        lines = lines[1:]
+    return yaml.load("\n".join(lines), Loader=Loader) or {}
+
+
+def _same(a, b):
+    if isinstance(a, np.ndarray):
+        return (
+            isinstance(b, np.ndarray) and a.shape == b.shape
+            and a.dtype == b.dtype and bool((a == b).all())
+        )
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(
+            _same(a[k], b[k]) for k in a
+        )
+    if isinstance(a, list):
+        return isinstance(b, list) and len(a) == len(b) and all(
+            _same(x, y) for x, y in zip(a, b)
+        )
+    return type(a) is type(b) and a == b
+
+
+@pytest.mark.parametrize(
+    "path",
+    sorted(CONFIGS.rglob("*.yml")),
+    ids=lambda p: str(p.relative_to(CONFIGS)),
+)
+def test_yaml_parser_matches_pyyaml(path):
+    got = load_opencv_yaml(path)
+    assert got, path
+    assert _same(got, _pyyaml_reference(path))
+
+
 def test_load_opencv_yaml_matrix():
     doc = load_opencv_yaml(CONFIGS / "camera.yml")
     K = doc["K0"]

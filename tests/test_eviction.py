@@ -1,7 +1,7 @@
 """Redundancy-aware keyframe-DB eviction (long-sequence loop closure).
 
 The reference's keyframe database is unbounded (``loop_closure.cpp:96-109``);
-the fixed-capacity TPU ring must pick victims on overflow.  These tests pin
+the fixed-capacity device ring must pick victims on overflow.  These tests pin
 the policy contract: FIFO loses the earliest keyframes (exactly what
 long-sequence loops close against), the redundancy policy keeps distinctive
 places alive while self-similar filler collapses, and recent keyframes are

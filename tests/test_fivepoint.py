@@ -2,7 +2,7 @@
 
 The reference's essential-matrix estimator is ``cv::findEssentialMat``
 (``src/frontend/pose_estimator.cpp:42``) — OpenCV's Nistér 5-point inside
-sequential RANSAC.  These tests validate the batched TPU-native solver
+sequential RANSAC.  These tests validate the batched JAX solver
 (``tpuslam/frontend/fivepoint.py``) three ways: against synthetic ground
 truth, against OpenCV's own 5-point solution set (the golden oracle the
 reference actually calls), and end-to-end through ``estimate_relative_pose``

@@ -120,9 +120,9 @@ def test_unpack_bits_lsb_first():
 def test_hamming_matrix_paths_agree():
     d1 = jnp.asarray(RNG.integers(0, 256, size=(37, 32)), dtype=jnp.uint8)
     d2 = jnp.asarray(RNG.integers(0, 256, size=(53, 32)), dtype=jnp.uint8)
-    m_mxu = np.asarray(hamming_matrix(d1, d2, use_mxu=True))
-    m_pop = np.asarray(hamming_matrix(d1, d2, use_mxu=False))
-    np.testing.assert_array_equal(m_mxu, m_pop)
+    m_mat = np.asarray(hamming_matrix(d1, d2, use_matmul=True))
+    m_pop = np.asarray(hamming_matrix(d1, d2, use_matmul=False))
+    np.testing.assert_array_equal(m_mat, m_pop)
     # against a slow NumPy oracle
     a = np.asarray(d1)
     bnp = np.asarray(d2)
@@ -133,7 +133,7 @@ def test_hamming_matrix_paths_agree():
                 int.from_bytes(a[i].tobytes(), "big")
                 ^ int.from_bytes(bnp[j].tobytes(), "big")
             ).count("1")
-    np.testing.assert_array_equal(m_mxu, oracle)
+    np.testing.assert_array_equal(m_mat, oracle)
 
 
 def test_nullvec_minimal_exact():

@@ -1,13 +1,15 @@
-"""Native C++ frame loader tests (skipped when the .so isn't built)."""
+"""Native C++ frame loader tests (skipped where the library cannot be built)."""
 
 import numpy as np
 import pytest
 
 from tpuslam.pre import native_loader
 
-pytestmark = pytest.mark.skipif(
-    not native_loader.available(), reason="native loader not built (make -C native)"
-)
+
+@pytest.fixture(autouse=True)
+def _built():
+    if not native_loader.available():
+        pytest.skip("native loader cannot be built here (make -C native)")
 
 
 @pytest.fixture(scope="module")

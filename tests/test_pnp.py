@@ -110,12 +110,12 @@ def test_gn_refine_beats_dlt_refit_on_noise():
     X, uv, R, t = synthetic_pnp(n=80, outlier_frac=0.3, noise_px=1.0,
                                 rng=np.random.default_rng(11))
     # hyp_sweeps=6 matches the production call sites: the synthetic sweep
-    # study (BASELINE.md) showed 3-sweep hypothesis solves collapse the DLT
+    # study showed 3-sweep hypothesis solves collapse the DLT
     # nullspace at >=0.3 px noise, and this fixture has 1.0 px + 30%
     # outliers — the subject here is the LO refit, not hypothesis quality.
     # lo_rounds=3: the absolute-accuracy bars below are platform-sensitive
     # (the same program reads 0.66deg at one LO round on the CPU test
-    # platform vs 0.0deg on TPU); three rounds converge both.
+    # platform and 0.0deg on another backend); three rounds converge both.
     kw = dict(reproj_threshold=3.0, hyp_sweeps=6, lo_rounds=3)
     res_dlt = ransac_pnp(
         jnp.asarray(X), jnp.asarray(uv), jnp.ones(80, bool), jnp.asarray(K),

@@ -212,7 +212,7 @@ def varspeed_results(kitti_frames):
 def test_pnp_tracks_speed_change_better_than_vo(varspeed_results):
     """On a 1→2→1-speed scene, absolute (map-anchored) tracking must beat
     chained depth-ratio scale propagation — this is the property PnP mode
-    exists to provide (VERDICT round 2: a test PnP mode can actually fail).
+    exists to provide (a test PnP mode can actually fail).
     """
     from test_scale_propagation import STEPS
 

@@ -184,3 +184,33 @@ def test_pose_end_to_end_real_frames(kitti_frames):
     )
     inl = np.asarray(res.inliers)
     assert (X[inl, 2] > 0).mean() > 0.75
+
+
+def test_msac_scores_match_float64_reference():
+    """MSAC scores (truncated Sampson loss + invalid-match cap) of the XLA
+    path against a float64 NumPy evaluation of the same formula."""
+    from tpuslam.frontend.pose import msac_scores
+
+    rng = np.random.default_rng(5)
+    h, m = 64, 200
+    x1 = rng.uniform(-0.5, 0.5, (m, 2))
+    x2 = x1 + rng.normal(0.0, 2e-3, (m, 2))
+    E = rng.normal(0.0, 0.3, (h, 3, 3))
+    valid = np.arange(m) < 170
+    thr = (1.0 / 700.0) ** 2
+
+    x1h = np.concatenate([x1, np.ones((m, 1))], 1)
+    x2h = np.concatenate([x2, np.ones((m, 1))], 1)
+    ex1 = np.einsum("hij,nj->hni", E, x1h)
+    etx2 = np.einsum("hji,nj->hni", E, x2h)
+    err = np.einsum("ni,hni->hn", x2h, ex1) ** 2 / (
+        ex1[..., 0] ** 2 + ex1[..., 1] ** 2 + etx2[..., 0] ** 2 + etx2[..., 1] ** 2
+    )
+    want = np.where(valid, np.minimum(err / thr, 1.0), 0.0).sum(-1) + (~valid).sum()
+
+    got = msac_scores(
+        jnp.asarray(E, jnp.float32), jnp.asarray(x1, jnp.float32),
+        jnp.asarray(x2, jnp.float32), jnp.asarray(valid), jnp.float32(thr),
+    )
+    assert got.shape == (h,)
+    np.testing.assert_allclose(np.asarray(got), want, rtol=1e-4, atol=1e-2)

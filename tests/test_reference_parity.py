@@ -1,9 +1,9 @@
-"""ATE parity vs reference numerics — BASELINE.md's accuracy metric.
+"""ATE parity vs reference numerics — BASELINE.json's accuracy metric.
 
 The oracle trajectory runs the *reference's* pose numerics
 (``cv::findEssentialMat`` RANSAC + the float64 ``simpleRecoverPose`` port,
 ``tests/golden/reference_impl.py``) over the same frontend output; the
-framework trajectory is the batched TPU-native pipeline.  Parity bar: ATE
+framework trajectory is the batched JAX pipeline.  Parity bar: ATE
 RMSE after Sim(3) alignment within 5% of the oracle's path length
 (monocular scale is a gauge freedom; the reference chains unit baselines).
 """

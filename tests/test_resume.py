@@ -89,7 +89,7 @@ def _slam_split_run(tmp_path, data_dir, tracking):
 
 
 def test_slam_split_run_equals_single_run(tmp_path, data_dir):
-    """--slam checkpoints the whole system state (VERDICT r2 weak #8)."""
+    """--slam checkpoints the whole system state."""
     _slam_split_run(tmp_path, data_dir, "vo")
 
 

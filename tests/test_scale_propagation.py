@@ -1,4 +1,4 @@
-"""Variable-speed monocular scale propagation (VERDICT round 1, item 7).
+"""Variable-speed monocular scale propagation.
 
 The depth-ratio scale chain (``model/slam.py`` step 7) exists to recover
 inter-frame speed changes that unit-baseline chaining cannot see.  Round 1
@@ -140,8 +140,8 @@ def test_pnp_tracks_speed_change_at_least_as_well_as_vo(
     pnp_recovered_steps, recovered_steps
 ):
     """Absolute map-anchored tracking must beat (or match) scale-chained VO
-    exactly where it should shine: a 2x speed change (VERDICT r2 item 8 —
-    a PnP assertion that can fail).  Measured: PnP 4.9% vs VO 6.8% max
+    exactly where it should shine: a 2x speed change (a PnP
+    assertion that can fail).  Measured: PnP 4.9% vs VO 6.8% max
     ratio error on this scene."""
     want = np.asarray(STEPS) / STEPS[0]
 

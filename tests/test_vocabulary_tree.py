@@ -1,7 +1,7 @@
 """Hierarchical (two-level tree) vocabulary: training, transform, persistence.
 
 The reference's fbow vocabulary is a k-ary tree (``loop_closure.cpp:22-27``
-loads ``orb_mur.fbow``); this is the TPU-native equivalent
+loads ``orb_mur.fbow``); this is the JAX equivalent
 (``tpuslam/backend/vocabulary.py::train_vocabulary_tree``).
 """
 

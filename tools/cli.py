@@ -29,7 +29,7 @@ apply_env_platform()
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(
         prog="tpuslam",
-        description="TPU-native monocular visual SLAM",
+        description="Monocular visual SLAM in JAX",
     )
     parser.add_argument("-c", "--config", required=True,
                         help="config directory holding camera.yml, feature_detector.yml, ...")

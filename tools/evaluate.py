@@ -2,7 +2,7 @@
 """Evaluate an estimated trajectory against ground truth (KITTI format).
 
 ATE-RMSE after Sim(3) alignment (monocular scale freedom) and RPE — the
-parity arbiters of BASELINE.md.
+parity arbiters of BASELINE.json.
 
 Usage:
   python tools/evaluate.py estimate.txt groundtruth.txt [--no-scale] [--plot out.png]

@@ -20,7 +20,7 @@ import sys
 from pathlib import Path
 
 REPO_ROOT = Path(__file__).resolve().parent.parent
-TARGETS = ["tpuslam", "tools", "tests", "bench.py", "__graft_entry__.py"]
+TARGETS = ["tpuslam", "tools", "tests", "bench.py", "chip_smoke.py", "__graft_entry__.py"]
 
 
 def _imported_names(tree: ast.Module) -> list[tuple[str, int]]:

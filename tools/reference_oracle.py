@@ -10,7 +10,7 @@ the framework's frontend (detection/description/matching are bit-parity
 tested against scalar reference oracles) and the *reference's* pose
 numerics over a frame directory, chaining unit-baseline relative poses into
 a trajectory — the stand-in for "what the C++ reference would output",
-against which BASELINE.md's "ATE RMSE within 5%" is measured.
+against which BASELINE.json's "ATE RMSE within 5%" is measured.
 
 Usage:
   python tools/reference_oracle.py -c configs -v tests/data/images -o oracle.txt

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Long-sequence full-SLAM soak on the real TPU: past the keyframe ring.
+"""Long-sequence full-SLAM soak on the GPU: past the keyframe ring.
 
 Runs the one-dispatch ``--slam`` sequence program over a ~1.5k-frame
 sequence — three times the 512-keyframe DB ring — structured as
@@ -18,7 +18,7 @@ Checks (the round-3 verdict's never-exercised regime):
   * device memory is flat by construction (fixed shapes) — the DB/map
     buffers at the end are the same arrays sizes as at frame 0.
 
-Usage (real TPU): ``python tools/soak.py [--frames 1536] [--policy fifo]``
+Usage (on the GPU): ``python tools/soak.py [--frames 1536] [--policy fifo]``
 """
 
 from __future__ import annotations

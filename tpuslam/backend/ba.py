@@ -2,7 +2,7 @@
 
 The reference *declares* this capability — ``Backend::run()`` "performs
 optimizations" on the shared map (``include/slam/backend/backend.hpp:10-18``)
-— but ships no implementation.  This module provides it the TPU way
+— but ships no implementation.  This module provides it the accelerator way
 (SURVEY §7 step 7, BASELINE north star): batched dense linear algebra.
 
 Structure per LM iteration (all shapes static, everything one jitted graph):
@@ -68,7 +68,7 @@ def _inv3x3(A: jax.Array) -> jax.Array:
 
     Elementwise arithmetic only — XLA fuses the whole thing, unlike
     ``jnp.linalg.inv`` whose batched LU factorisation is a long sequential
-    chain on TPU.  Callers guarantee invertibility (LM-damped blocks).
+    chain of small kernels.  Callers guarantee invertibility (LM-damped blocks).
     """
     a, b, c = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
     d, e, f = A[..., 1, 0], A[..., 1, 1], A[..., 1, 2]
@@ -258,8 +258,8 @@ def bundle_adjust(
 
         # One combined Jacobian block J = [A | B] (W, P, 2, 9) turns the five
         # separate Hessian/gradient einsums into TWO contractions plus free
-        # (fused) slices and sums — the LM loop is op-count-bound on TPU
-        # (every extra dot is a separate ~40 µs kernel × LM iterations), not
+        # (fused) slices and sums — the LM loop is op-count-bound
+        # (every extra dot is a separate kernel × LM iterations), not
         # FLOP-bound at these shapes.
         J = jnp.concatenate([A, B], axis=-1)  # (W, P, 2, 9)
         Jw = J * w[..., None, None]
@@ -277,7 +277,7 @@ def bundle_adjust(
         V_d = V + lam * eye3[None] + 1e-8 * eye3[None]
         # Closed-form adjugate inverse of the symmetric 3×3 blocks: pure
         # elementwise arithmetic XLA fuses into one kernel, where
-        # ``jnp.linalg.inv`` lowers to a batched LU (serial-ish on TPU).
+        # ``jnp.linalg.inv`` lowers to a batched LU (a serial chain of small steps).
         # Inactive points have V = λI → harmless.
         V_inv = _inv3x3(V_d)  # (P, 3, 3)
 
@@ -356,7 +356,7 @@ def bundle_adjust(
 
     if act_idx is not None:
         # Scatter the optimised block back into the full point buffer
-        # (dense-table scatter; TPU multi-index scatters are ~serial).
+        # (dense-table scatter; see map.scatter_rows_dense).
         from tpuslam.backend.map import _apply_row_scatter
 
         points_out = _apply_row_scatter(points_full, X, act_idx, act_valid)

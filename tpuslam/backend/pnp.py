@@ -8,7 +8,7 @@ Reference semantics (``src/backend/loop_closure.cpp:180-274``):
     by reprojection error < threshold with z > 0 cheirality, keep the best;
   * success iff best inlier count ≥ ``MinInliersForPnP``.
 
-TPU-native restructuring: all hypotheses are sampled up front and solved as
+Accelerator-first restructuring: all hypotheses are sampled up front and solved as
 one batched 12-dim nullspace problem (one-sided Jacobi — float32-stable, no
 AᵀA squaring); all H×M reprojection errors are scored in one pass; a final
 least-squares refit on the best consensus set sharpens the pose.
@@ -207,8 +207,7 @@ def motion_pnp(
 
     The per-frame tracking scan (``model/tracking.py``) is latency-bound by
     its *sequential chain*, and RANSAC's hypothesis stage is the longest
-    link (a 6-sweep one-sided Jacobi = 66 dependent rotation rounds, ~7 ms
-    per 16-frame chunk measured differentially).  On continuous video the
+    link (a 6-sweep one-sided Jacobi = 66 dependent rotation rounds).  On continuous video the
     previous pose (or the two-view relative pose applied to it) is already
     within a few pixels of the answer, so hypotheses buy nothing: this
     solver just descends — ``iters`` rounds of Huber-reweighted
@@ -339,10 +338,10 @@ def ransac_pnp(
 
     # Hypothesis sampling (Gumbel top-k = without replacement over valid).
     # Top-k by iterated argmax+mask: identical indices to ``lax.top_k`` for
-    # the tiny k here (ties are measure-zero on float gumbels), ~1.6×
-    # cheaper on TPU (top_k lowers to a full sort of the M lanes; k argmax
+    # the tiny k here (ties are measure-zero on float gumbels), cheaper
+    # (top_k lowers to a full sort of the M lanes; k argmax
     # reductions don't) — this sits on the per-frame tracking scan's
-    # sequential spine, where every 50 µs is ~2 % PnP-mode throughput.
+    # sequential spine, where every dependent step costs throughput.
     g = jax.random.gumbel(key, (num_hypotheses, M), dtype=jnp.float32)
     g = jnp.where(valid[None, :], g, -jnp.inf)
     iota = jnp.arange(M, dtype=jnp.int32)[None, :]

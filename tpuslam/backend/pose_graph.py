@@ -3,11 +3,11 @@
 The reference detects loops (``LoopClosure::detect`` returns a relative
 transform, ``loop_closure.hpp:17-20``) but has no machinery to *use* them —
 its ``Backend``/``SLAMModel`` were never implemented.  This module closes
-that gap the TPU way: a Gauss–Newton pose-graph solver over SE(3) nodes with
+that gap the accelerator way: a Gauss–Newton pose-graph solver over SE(3) nodes with
 fixed-capacity edge buffers, Jacobians from ``jax.jacfwd`` on the edge
 residual, and one dense (6N, 6N) normal-equation solve per iteration —
 dense linear algebra is cheap at SLAM-scale node counts and far friendlier
-to the TPU than sparse factorization.
+to an accelerator than sparse factorization.
 
 Residual per edge (i → j, measured relative transform T̂_ij, cam-to-world
 nodes T_i): r = log(T̂_ij⁻¹ · T_i⁻¹ · T_j) ∈ se(3); gauge fixed at node 0.
@@ -94,17 +94,17 @@ def optimize_pose_graph(
     Two linear solvers behind the same GN loop:
 
     * ``"dense"`` — materialise H (N,6,N,6) and LU-solve (6N, 6N).  Exact;
-      memory is O(36 N²) and the LU workspace OOMed a single v5e chip at
-      N≈1500 (18 GB requested), so it is the default only for N ≤ 256.
+      memory is O(36 N²) and the LU workspace asks for 18 GB at N≈1500,
+      so it is the default only for N ≤ 256.
     * ``"pcg"`` — matrix-free preconditioned conjugate gradient.  The
       per-edge 6×6 blocks (JᵀWJ) are kept in (E, 6, 6) form and H·v is
       computed edge-wise each CG step: gather v at edge endpoints, apply
       the blocks, and accumulate back through one-hot (N, E) matmuls
-      (TPU scatter-add over repeated indices is near-serial — the same
+      (scatter-add over repeated indices serialises — the same
       reformulation as ``map.scatter_rows_dense``).  Block-Jacobi
       preconditioner from the diagonal blocks.  Memory O(E·36 + N·E),
-      compute rides the MXU — KITTI-scale graphs (thousands of nodes)
-      fit and solve in milliseconds.  The reference has no pose-graph
+      compute is dense matmuls — KITTI-scale graphs (thousands of nodes)
+      fit.  The reference has no pose-graph
       machinery at all (its LoopResult transforms are dropped); this is
       capability beyond it, sized for its intended domain.
     """
@@ -116,7 +116,7 @@ def optimize_pose_graph(
         # needs ≥N iterations to carry a loop correction end-to-end
         # (measured on the 60-node drift fixture: 100 iters left 0.09
         # position error vs dense, 200 → 5e-4, 400 → exact).  Hv is two
-        # (N, E) MXU matmuls — thousands of iterations are milliseconds,
+        # (N, E) matmuls — thousands of iterations are cheap,
         # so the budget scales with N (a hard 2000 cap silently under-
         # converged chains longer than 2000 nodes); the while_loop below
         # exits early on the residual test, so oversizing is free.
@@ -219,7 +219,7 @@ def optimize_pose_graph(
         # GN re-linearization error the outer loop absorbs).  This is
         # called host-side (never inside a sequence scan), so the
         # while_loop early exit is real wall-clock, not the in-scan
-        # control-flow pathology BASELINE.md documents.
+        # control-flow pathology (see SlamSystem._ba_cond).
         tol = 1e-10 * jnp.maximum(rz0, 1e-30)
 
         def cg_cond(carry):

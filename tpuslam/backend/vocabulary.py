@@ -3,12 +3,12 @@
 The reference uses an fbow vocabulary loaded from ``orb_mur.fbow``
 (``loop_closure.cpp:22-27``) — a blob absent from this mount
 (``.MISSING_LARGE_BLOBS``), so SURVEY §7 step 6 calls for a from-scratch,
-TPU-friendly replacement: a flat k-word vocabulary trained by binary k-means
+accelerator-friendly replacement: a flat k-word vocabulary trained by binary k-means
 over BRIEF descriptors, TF-IDF weighting, and similarity scoring as one
 matmul over L2-normalised BoW vectors (score ∈ [0, 1], replacing fbow's
 BoWVector::score with the same gating semantics).
 
-Training runs as jitted JAX (Hamming assignment via the same MXU bit-matmul
+Training runs as jitted JAX (Hamming assignment via the same bit-matmul
 the matcher uses; centroid update = bitwise majority vote).  Vocabularies
 serialise to ``.npz``.
 """
@@ -39,7 +39,7 @@ def train_vocabulary(
 ) -> np.ndarray:
     """Binary k-means over (N, B) uint8 descriptors → (num_words, B) uint8.
 
-    Assignment: nearest centroid by Hamming distance (MXU bit-matmul).
+    Assignment: nearest centroid by Hamming distance (bit-matmul).
     Update: per-bit majority vote of assigned descriptors.  Empty clusters
     are reseeded from the descriptors farthest from their centroid.
     """
@@ -273,7 +273,7 @@ def _transform(descriptors, valid, centroids, idf):
 def _assign_tree(descriptors, coarse, leaves_r):
     """Two-level quantisation: (K, B) uint8 → (K,) int32 leaf ids.
 
-    Coarse assignment is one MXU bit-matmul over k1 words; the child
+    Coarse assignment is one bit-matmul over k1 words; the child
     assignment gathers each descriptor's (k2, B) child block and runs
     XOR+popcount on the VPU (k2 is small, the gather is per-descriptor so
     there is no shared matmul shape).

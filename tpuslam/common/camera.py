@@ -1,4 +1,4 @@
-"""Camera model: intrinsics, distortion, and TPU-friendly undistortion.
+"""Camera model: intrinsics, distortion, and on-device undistortion.
 
 Behavioural contract (reference ``include/slam/common/common.hpp:76-173``):
 
@@ -12,7 +12,7 @@ Behavioural contract (reference ``include/slam/common/common.hpp:76-173``):
     out-of-bounds samples become 0;
   * the undistorted image is grayscale in ``[0, 1]``.
 
-TPU-first difference: the reference rebuilds the distortion grid for every
+Device-first difference: the reference rebuilds the distortion grid for every
 frame (``common.hpp:143-157``); here the integer gather map is precomputed
 once per camera on the host, and per-frame undistortion is a single gather
 that ``jit``/``vmap`` fuse with downstream kernels.

@@ -2,12 +2,12 @@
 
 The reference triangulates one point at a time with a 4×4 SVD
 (``common.hpp:201-221``) and solves PnP/essential decompositions with
-per-instance LAPACK SVDs in float64.  Batched small SVD/eigh are hostile to
-the TPU (measured: eigh over 2048 9×9 ≈ 26 ms), so the nullspace solver here
+per-instance LAPACK SVDs in float64.  Batched small SVD/eigh are slow
+on accelerators, so the nullspace solver here
 is a *batched one-sided Jacobi* working directly on the rows — no AᵀA
 squaring, float32-safe, with the Givens rotations applied as dynamic-slice
-column updates on the VPU (a Givens matmul pads tiny matrices onto the
-128×128 MXU).
+column updates as elementwise work (a Givens matmul would pad tiny
+matrices onto a large matrix unit).
 """
 
 from __future__ import annotations
@@ -38,7 +38,7 @@ def nullvec_jacobi(A: jax.Array, sweeps: int = 8) -> jax.Array:
     One-sided Jacobi SVD on ``A`` (..., m, n): orthogonalises column pairs
     with Givens rotations accumulated into V.  Works directly on A — unlike
     eigh(AᵀA) it never squares the condition number, so it stays accurate in
-    float32 (the TPU's native precision) where the reference leans on
+    float32 (the accelerator's native precision) where the reference leans on
     float64 LAPACK SVDs (``common.hpp:214``, ``simple_pose_recover.cpp:29``).
 
     *Parallel (round-robin) ordering*: each ``fori_loop`` step rotates
@@ -46,7 +46,7 @@ def nullvec_jacobi(A: jax.Array, sweeps: int = 8) -> jax.Array:
     axis — 3–4× fewer sequential steps than cyclic ordering, and measurably
     better convergence per sweep (parallel orderings are known to converge
     at least as fast; measured |Av| 2e-6 vs 1.5e-2 at equal cost on 8×9
-    minimal systems).  Rotations never touch the MXU.
+    minimal systems).  Rotations never touch a matrix unit.
     """
     n = A.shape[-1]
     dtype = A.dtype
@@ -319,11 +319,12 @@ def orthonormalize_rotation(R: jax.Array, iters: int = 3) -> jax.Array:
     """Newton iteration for the orthogonal polar factor: R ← R(3I − RᵀR)/2.
 
     Quadratically convergent for matrices near SO(3); pure matmuls, so it
-    fixes the float32 drift of TPU small-SVD pipelines without another SVD.
+    fixes the float32 drift of small-SVD pipelines without another SVD.
     """
     eye = jnp.eye(3, dtype=R.dtype)
     for _ in range(iters):
-        # TPU f32 matmuls default to bf16 multiplication passes; the polar
+        # f32 matmuls default to reduced precision on accelerators (TF32 on
+        # GPUs); the polar
         # Newton iteration needs true f32.
         RtR = jnp.matmul(jnp.swapaxes(R, -1, -2), R, precision="highest")
         R = jnp.matmul(R, 1.5 * eye - 0.5 * RtR, precision="highest")

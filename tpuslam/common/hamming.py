@@ -4,16 +4,16 @@ The reference computes per-pair Hamming distance with a byte-wise XOR and a
 256-entry popcount lookup table (reference ``common.hpp:18-50``), inside an
 O(N1·N2) scalar double loop in the matcher (``feature_matcher.cpp:143-189``).
 
-TPU-native design: two paths, both computing the full N1×N2 distance matrix
+Two paths, both computing the full N1×N2 distance matrix
 in one shot:
 
   * **popcount path** — XOR with broadcasting + ``lax.population_count``
     (VPU); exact, good for small N.
-  * **MXU path** — unpack descriptors to {0,1} bit planes and use the
+  * **matmul path** — unpack descriptors to {0,1} bit planes and use the
     identity  ``ham(a, b) = |a| + |b| - 2·(a_bits · b_bits)``  so the inner
     product rides the 128×128 systolic array as an int8→int32 matmul.  This
     is the production path: a (1024, 256)×(256, 1024) bit-matmul is ~0.07
-    MFLOP-equivalent and saturates the MXU for batched frame pairs.
+    MFLOP-equivalent int8 product on the tensor cores for batched frame pairs.
 """
 
 from __future__ import annotations
@@ -46,19 +46,21 @@ def unpack_bits(descriptors: jax.Array) -> jax.Array:
     return bits.reshape(*descriptors.shape[:-1], descriptors.shape[-1] * 8).astype(jnp.int8)
 
 
-@partial(jax.jit, static_argnames=("use_mxu",))
-def hamming_matrix(d1: jax.Array, d2: jax.Array, *, use_mxu: bool = True) -> jax.Array:
+@partial(jax.jit, static_argnames=("use_matmul",))
+def hamming_matrix(
+    d1: jax.Array, d2: jax.Array, *, use_matmul: bool = True
+) -> jax.Array:
     """Full (N1, N2) int32 Hamming distance matrix between descriptor sets.
 
     ``d1``: (N1, B) uint8, ``d2``: (N2, B) uint8.
     """
-    if use_mxu:
+    if use_matmul:
         b1 = unpack_bits(d1)  # (N1, 8B) int8
         b2 = unpack_bits(d2)  # (N2, 8B) int8
         # |a| and |b| per row (exact int32).
         n1 = jnp.sum(b1.astype(jnp.int32), axis=-1)  # (N1,)
         n2 = jnp.sum(b2.astype(jnp.int32), axis=-1)  # (N2,)
-        # int8 × int8 → int32 contraction on the MXU.
+        # int8 × int8 → int32 contraction.
         dot = jax.lax.dot_general(
             b1,
             b2,

@@ -8,7 +8,7 @@ reference config files load unchanged:
   * matcher keys/validation   — reference ``feature_matcher.cpp:18-59``
   * loop-closure keys/rules   — reference ``loop_closure.cpp:30-94``
 
-On top of the reference keys, each config carries TPU-specific *capacity*
+On top of the reference keys, each config carries *capacity*
 fields (fixed-shape buffer sizes).  They have defaults and may be overridden
 by extra YAML keys the reference would simply ignore.
 """
@@ -41,12 +41,12 @@ class DetectorConfig:
     suppression_window_size: int = 12
     patch_size: int = 31
     num_brief_pairs: int = 256
-    # TPU capacity fields (not in the reference — fixed-shape buffer sizes).
+    # Capacity fields (not in the reference — fixed-shape buffer sizes).
     max_keypoints: int = 1024
     brief_seed: int = 42
     # 0 = exact continuous-angle BRIEF (reference parity); >0 quantises the
-    # orientation to this many bins so description runs as one int8 MXU
-    # matmul (~7× faster; ≤ 360/bins deg quantisation).
+    # orientation to this many bins so description runs as one int8
+    # matmul (≤ 360/bins deg quantisation).
     brief_quantized_bins: int = 0
     # Multi-scale (ORB-style) pyramid: 1 = single scale (reference parity).
     # Levels are detected/described on successively 1/scale_factor-resized
@@ -184,7 +184,7 @@ class LoopClosureConfig:
     # matcher's ratio (the reference reuses the matcher there,
     # loop_closure.cpp:156-158).
     reloc_ratio_threshold: float = 0.8
-    # TPU capacity fields.
+    # Capacity fields.
     max_keyframes: int = 512
     # Ring-overflow eviction policy.  The reference's keyframe DB is
     # unbounded (``loop_closure.cpp:96-109``); a fixed-capacity DB must
@@ -279,7 +279,7 @@ class PoseConfig:
 
     The reference delegates to ``cv::findEssentialMat(..., cv::RANSAC)``
     (``pose_estimator.cpp:42``) with OpenCV defaults (1.0 px threshold,
-    0.999 confidence).  The TPU version scores a fixed batch of hypotheses in
+    0.999 confidence).  This version scores a fixed batch of hypotheses in
     one shot instead of iterating adaptively.
     """
 
@@ -290,8 +290,7 @@ class PoseConfig:
     seed: int = 0
     # Hypothesis budget when the two-view solve only SEEDS map-centric PnP
     # tracking (tracking="pnp").  0 (default) = use num_hypotheses.  A
-    # halved budget measured +1.1 ms/chunk on the bench clip with
-    # identical fixture TRAJECTORIES — but the two-view solve also feeds
+    # halved budget gives identical fixture TRAJECTORIES — but the two-view solve also feeds
     # the pair TRIANGULATIONS that become map landmarks and keyframe-DB
     # depths, and there a 512-budget draw measured 75 essential inliers
     # vs 102 at 1024 on one fixture pair, with depth spread bad enough to
@@ -333,7 +332,7 @@ class MapConfig:
     """Map / landmark-association / backend gating configuration (``map.yml``).
 
     The reference's ``Map`` is a header-only skeleton with no parameters
-    (``include/slam/backend/map.hpp:9-21``), so these keys are TPU-side
+    (``include/slam/backend/map.hpp:9-21``), so these keys are
     additions following the reference's YAML-everything discipline.  The
     defaults are tuned for KITTI-scale outdoor forward motion; indoor or
     synthetic scenes (different flow magnitudes, different depth ranges in

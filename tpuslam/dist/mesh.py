@@ -1,7 +1,7 @@
 """Device-mesh utilities: multi-sequence SLAM sharding.
 
 The reference has no distributed execution of any kind (SURVEY §2: no
-MPI/NCCL/threads in implemented code).  The TPU-native scaling model
+MPI/NCCL/threads in implemented code).  The scaling model
 (BASELINE config 5) is *sequence parallelism over a mesh*: S independent
 video sequences are vmapped into one program and sharded across a
 ``jax.sharding.Mesh`` axis; per-sequence SLAM state is fully local so XLA
@@ -25,12 +25,12 @@ def initialize_multihost(
 ) -> bool:
     """Join a multi-host JAX cluster (``jax.distributed.initialize``).
 
-    The SURVEY §5 distributed-communication row: on multi-host TPU pods
-    every host must call this before any mesh is built so
-    ``jax.devices()`` spans the full pod and XLA collectives ride ICI/DCN.
-    Arguments default to cluster-environment auto-detection (TPU pod
-    metadata / coordinator env vars); explicit values support manual
-    process launch.  Returns True when a multi-process runtime is active
+    The SURVEY §5 distributed-communication row: on a multi-host GPU
+    cluster every host must call this before any mesh is built so
+    ``jax.devices()`` spans every host's GPUs and XLA's collectives (NCCL)
+    reach them all.  Pass the coordinator address (``host:port``), the
+    number of processes and this process's id; without them JAX tries to
+    detect a cluster environment.  Returns True when a multi-process runtime is active
     (idempotent; single-host callers get False and a local mesh).
     """
     try:
@@ -51,7 +51,9 @@ def make_device_mesh(n_devices: int | None = None, axis_name: str = "seq") -> Me
 
     After :func:`initialize_multihost`, ``jax.devices()`` returns every
     device in the cluster in a stable order, so the same call shapes a
-    single-host v5e-8 mesh and a multi-host pod slice mesh.
+    one-host mesh (e.g. four NVLink-joined GPUs) and a multi-host mesh.
+    The mesh is flat: every GPU of a host reaches every other at the same
+    rate, so no torus shape is needed.
     """
     devices = jax.devices()
     if n_devices is not None:
@@ -118,12 +120,10 @@ def shard_sequence_program(sequence_impl, mesh: Mesh, axis_name: str = "seq"):
     both-branches select, so the rare-path stages — loop-closure geometric
     verification on no-candidate chunks, PnP tracking's RANSAC fallback
     when motion-model descent fails, relocalization on healthy chunks —
-    get paid unconditionally on every chunk of every sequence (measured:
-    multiseq S=1 ran at 219 FPS against 413 for the identical program
-    unbatched).  Under ``shard_map`` each sequence stays a *rank-preserved
-    scalar program* on its own core, and TPU cores execute data-dependent
-    control flow independently, so the conds remain real branches; the
-    mesh axis is pure SPMD with no collectives (per-sequence SLAM state is
+    get paid unconditionally on every chunk of every sequence.  Under
+    ``shard_map`` each sequence stays a *rank-preserved scalar program* on
+    its own device, and each device executes data-dependent control flow
+    independently, so the conds remain real branches; the mesh axis is pure SPMD with no collectives (per-sequence SLAM state is
     fully local, exactly as the vmap layout had it).
     """
     spec = P(axis_name)

@@ -2,7 +2,7 @@
 
 SURVEY §5 ("long-context analog"): the reference streams frames strictly
 sequentially with O(1) state (``preprocessor.cpp:95-141``); its only growth
-axis is video length.  The TPU-native scaling answer is *context
+axis is video length.  The accelerator-native scaling answer is *context
 parallelism over time*: cut one long sequence into D contiguous segments,
 track every segment independently on its own device (no collectives on the
 hot path — monocular VO is embarrassingly parallel once cut), and stitch
@@ -419,8 +419,7 @@ def cross_segment_loop_closure(
        scorers, and geometrically verify them in ONE batched device
        dispatch with the SAME branch-free verifier the in-shard chunk
        path uses (re-match + RANSAC DLT-PnP, ``LoopClosure._verify_impl``
-       — false BoW candidates die here, as measured in BASELINE.md's
-       vocabulary table).
+       — false BoW candidates die here).
 
     Returns loop dicts in GLOBAL frame ids, same schema as
     ``SlamSystem.run_sequence``'s loops — ready for the global pose

@@ -16,11 +16,11 @@ Reference semantics (``src/frontend/feature_detector.cpp:205-364``):
     the bit index* (``:233-284``); keypoints within patch/2 of the border
     get an all-zero descriptor (``:242-245``).
 
-TPU-native restructuring: blur is 25 shifted multiply-adds (also available
-fused with FAST in ``kernels/frontend_pallas.py``); orientation moments come
+Accelerator-first restructuring: blur is 25 shifted multiply-adds (also
+fused with FAST in ``kernels/frontend_triton.py``); orientation moments come
 from full-image prefix-sum maps; BRIEF has two paths — the *exact*
 continuous-angle path (per-keypoint patch lookups, reference-parity
-semantics) and the *quantised* MXU path (orientation binned, all bins × all
+semantics) and the *quantised* matmul path (orientation binned, all bins × all
 pairs computed as one int8 matmul against a constant ±1 weight matrix, bit
 packing via a precomputed compaction permutation).
 """
@@ -60,10 +60,9 @@ def gaussian_blur_u8(
     over the positive convolution sums (reference ``:341-355``).
 
     Implementation: the 2D kernel as 25 shifted multiply-adds fused by XLA
-    on the VPU.  A single-channel ``lax.conv`` lowers to a pathological
-    MXU layout on TPU (~12 ms/frame measured); the shift form runs in ~0.1
-    ms and keeps the exact 2D summation order irrelevant (all-positive
-    taps, float32).
+    into one elementwise pass, which keeps the exact 2D summation order
+    (all-positive taps, float32); a single-channel ``lax.conv`` would
+    hand XLA a convolution layout that suits no matrix unit.
     """
     half = kernel_size // 2
     img = image.astype(jnp.float32)
@@ -159,8 +158,7 @@ def orientation_moment_maps(
 
     m10(y, x) = Σ_u u · Σ_{|v| ≤ h(u)} I(y+v, x+u) over the disc
     (u² + v² ≤ r²), built from prefix sums + shifted adds — O(r) passes of
-    pure VPU elementwise work instead of per-keypoint 31×31 gathers (which
-    cost ~18 ms/frame on TPU).  Values match the direct disc sum exactly
+    pure elementwise work instead of per-keypoint 31×31 gathers.  Values match the direct disc sum exactly
     for interior pixels; border pixels are masked by the caller (the
     reference returns angle 0 there anyway, ``feature_detector.cpp:210-214``).
     """
@@ -251,9 +249,9 @@ def disc_moment_weights(patch_size: int) -> np.ndarray:
     the disc u² + v² ≤ (patch/2)² laid out in flattened rotation-patch
     coordinates.  Because the disc is symmetric (Σu = Σv = 0), the moments of
     −128-shifted int8 patches equal the moments of the raw intensities
-    exactly — so orientation is one tiny int8 MXU matmul over patches the
+    exactly — so orientation is one tiny int8 matmul over patches the
     BRIEF path extracts anyway, replacing the full-image prefix-sum moment
-    maps (~1.7 ms/frame) in the hot path.
+    maps in the hot path.
     """
     half = rotation_patch_half(patch_size)
     r = patch_size // 2
@@ -274,7 +272,7 @@ def extract_brief_patches_i8(
     """(K, S2p) int8 flattened patches centred on each keypoint.
 
     The image is zero-padded by the rotation-patch half-width so patches are
-    always centred; intensities are shifted by −128 into int8 (MXU input;
+    always centred; intensities are shifted by −128 into int8 (matmul input;
     the BRIEF comparison and the disc moments are shift-invariant).  The
     patch row stride is ``patch_side`` (8-aligned, matching the Pallas
     extraction kernel); rows past side² are zero padding to the lane tile.
@@ -337,15 +335,14 @@ def quantize_angles(angles_deg: jax.Array, bins: int) -> jax.Array:
 def build_brief_bin_weights(
     pattern: BriefPattern, patch_size: int, bins: int
 ) -> tuple[np.ndarray, np.ndarray]:
-    """Constant ±1 weight matrix for the MXU BRIEF path.
+    """Constant ±1 weight matrix for the matmul BRIEF path.
 
     For each orientation bin b and pair j, the comparison
     ``I(p2) − I(p1)`` over a flattened (S, S) patch centred on the keypoint
     is a dot product with a 2-nonzero ±1 vector.  Stacking all bins × pairs
     gives W (S2p, bins·P) int8 (rows padded to the 128-lane tile), so all
-    descriptors of a frame are one ``patches @ W`` int8 matmul — the MXU
-    eats the 1000× nominal redundancy for breakfast while random gathers
-    cost ~10 ms/frame.
+    descriptors of a frame are one ``patches @ W`` int8 matmul — the tensor cores absorb the
+    1000× nominal redundancy, where random gathers would be latency-bound.
 
     Returns (W, in_patch (bins, P) validity) — pairs whose *quantised*
     rotation stays inside the patch (always true by construction, kept for
@@ -399,8 +396,7 @@ def brief_bits_from_dots(
     byte packing.  Shared epilogue of the XLA one-hot and Pallas paths.
 
     Bit placement: the exact path compacts positions over the per-keypoint
-    validity mask ("skip without advancing") with a scatter — expensive on
-    TPU.  Pattern-rejection validity is identical for every keypoint, so
+    validity mask ("skip without advancing") with a scatter.  Pattern-rejection validity is identical for every keypoint, so
     its compaction is one STATIC permutation; only pairs leaving the image
     (keypoints within rotation_patch_half of the border) would shift later
     bits in the reference — here they contribute a 0 at their fixed slot
@@ -453,6 +449,39 @@ def brief_bits_from_dots(
     )
 
 
+def quantized_brief_from_patches(
+    patches_i8: jax.Array,
+    kps: KeypointSet,
+    angles_deg: jax.Array,
+    pattern: BriefPattern,
+    bin_weights: jax.Array,
+    num_pairs: int,
+    patch_size: int,
+    bins: int,
+    image_shape: tuple[int, int],
+) -> jax.Array:
+    """Quantised steered BRIEF from pre-extracted (K, S2p) int8 patches.
+
+    All bins × all pairs are one (K, S2p)·(S2p, bins·P) int8 product with
+    int32 accumulation; a one-hot masked reduction then keeps each
+    keypoint's own bin in one fused read of the dot tensor.
+    """
+    K = patches_i8.shape[0]
+    P = pattern.p1.shape[0]
+    bin_idx = quantize_angles(angles_deg, bins)
+    dots = jax.lax.dot_general(
+        patches_i8,
+        bin_weights,
+        dimension_numbers=(((1,), (0,)), ((), ())),
+        preferred_element_type=jnp.int32,
+    )  # (K, bins*P)
+    onehot = jax.nn.one_hot(bin_idx, bins, dtype=jnp.int32)
+    own = jnp.sum(dots.reshape(K, bins, P) * onehot[:, :, None], axis=1)  # (K, P)
+    return brief_bits_from_dots(
+        own, bin_idx, kps, pattern, bins, num_pairs, patch_size, image_shape
+    )
+
+
 def compute_brief_descriptors_quantized(
     image_blurred: jax.Array,
     kps: KeypointSet,
@@ -463,40 +492,16 @@ def compute_brief_descriptors_quantized(
     patch_size: int,
     bins: int,
 ) -> jax.Array:
-    """Steered BRIEF with orientation quantised to ``bins`` (MXU path).
+    """Steered BRIEF with orientation quantised to ``bins``.
 
     Behaviourally equivalent to :func:`compute_brief_descriptors` up to the
-    angle quantisation (≤ 180/bins degrees — finer than ORB's classic 30
-    bins at bins ≥ 64).  This XLA formulation materialises the full
-    (K, bins·P) dot tensor and one-hot-selects each keypoint's bin; the
-    throughput pipeline uses the Pallas kernel
-    (``kernels/brief_pallas.py``) which keeps the reduction on-chip — both
-    share :func:`brief_bits_from_dots`, and the exact continuous-angle path
-    remains the parity/golden-test reference.
+    angle quantisation (≤ 180/bins degrees); the exact continuous-angle
+    path remains the parity/golden-test reference.
     """
-    h, w = image_blurred.shape
-    P = pattern.p1.shape[0]
-    K = kps.xy.shape[0]
-
-    bin_idx = quantize_angles(angles_deg, bins)
-    patches_flat = extract_brief_patches_i8(image_blurred, kps, patch_size)
-    dots = jax.lax.dot_general(
-        patches_flat,
-        bin_weights,
-        dimension_numbers=(((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.int32,
-    )  # (K, bins*P)
-
-    # Select each keypoint's own bin via a one-hot masked reduction — one
-    # fused read of the dots tensor.  (Per-row dynamic_slice costs ~2.4
-    # ms/frame and take_along_axis ~7.5 ms/frame on TPU; boolean
-    # intermediates at (K, bins, P) add two extra 0.5 GB passes.)
-    onehot = jax.nn.one_hot(bin_idx, bins, dtype=jnp.int32)
-    own = jnp.sum(
-        dots.reshape(K, bins, P) * onehot[:, :, None], axis=1
-    )  # (K, P)
-    return brief_bits_from_dots(
-        own, bin_idx, kps, pattern, bins, num_pairs, patch_size, (h, w)
+    patches = extract_brief_patches_i8(image_blurred, kps, patch_size)
+    return quantized_brief_from_patches(
+        patches, kps, angles_deg, pattern, bin_weights, num_pairs, patch_size,
+        bins, image_blurred.shape,
     )
 
 
@@ -572,8 +577,8 @@ def compute_brief_descriptors(
     valid_pair = in_img & pattern.pair_valid[None, :]  # (K, P)
 
     # Pixel lookups through per-keypoint patches: one contiguous
-    # dynamic-slice per keypoint, then small-range take_along_axis — far
-    # cheaper on TPU than 2·K·P scattered global gathers (~10 ms/frame).
+    # dynamic-slice per keypoint, then small-range take_along_axis — in
+    # place of 2·K·P scattered global gathers.
     half = rotation_patch_half(patch_size)
     S = 2 * half + 1
     if S <= min(h, w):

@@ -1,6 +1,6 @@
 """FeatureDetector facade: FAST detect + steered-BRIEF compute.
 
-The TPU analog of the reference's ``FeatureDetector`` class
+The JAX analog of the reference's ``FeatureDetector`` class
 (``include/slam/frontend/feature_detector.hpp:48-135``): construction loads
 and validates the YAML config and fixes the BRIEF pattern once; ``detect``,
 ``compute`` and ``detect_and_compute`` are jitted, batchable pure functions.
@@ -18,19 +18,71 @@ import jax.numpy as jnp
 from tpuslam.config.schema import DetectorConfig
 from tpuslam.frontend.brief import (
     BriefPattern,
-    brief_bits_from_dots,
     build_brief_bin_weights,
     compute_brief_descriptors,
-    compute_brief_descriptors_quantized,
     compute_orientations,
     disc_moment_weights,
+    extract_brief_patches_i8,
     gaussian_blur_u8,
     gaussian_kernel,
     generate_brief_pattern,
     orientations_from_patches,
-    quantize_angles,
+    quantized_brief_from_patches,
 )
-from tpuslam.frontend.fast import KeypointSet, detect_keypoints, select_keypoints
+from tpuslam.frontend.fast import (
+    KeypointSet,
+    detect_keypoints,
+    fast_response_and_mask,
+    select_keypoints,
+)
+
+
+def blur_fast_reference(
+    images: jax.Array, *, threshold: int, contiguous: int
+) -> tuple[jax.Array, jax.Array, jax.Array]:
+    """Plain XLA blur + FAST over (B, H, W) uint8 frames.
+
+    Returns ``(blurred u8, corner bool, score i32)``, each (B, H, W).
+    """
+    kernel = jnp.asarray(gaussian_kernel())
+    blur = jax.vmap(lambda im: gaussian_blur_u8(im, kernel))(images)
+    corner, score = jax.vmap(
+        lambda im: fast_response_and_mask(im, threshold, contiguous)
+    )(images)
+    return blur, corner, score
+
+
+def blur_fast_impl(platform: str):
+    """The blur + FAST implementation for a JAX platform name.
+
+    ``"cpu"`` runs the plain reference; ``"gpu"`` the fused Triton kernel
+    (``kernels/frontend_triton.py``).  Any other platform has no frontend.
+    """
+    if platform == "cpu":
+        return blur_fast_reference
+    if platform == "gpu":
+        from tpuslam.kernels.frontend_triton import fused_frontend_batch
+
+        return fused_frontend_batch
+    raise ValueError(f"no blur+FAST implementation for platform {platform!r}")
+
+
+def blur_fast_batch(
+    images: jax.Array, *, threshold: int, contiguous: int
+) -> tuple[jax.Array, jax.Array, jax.Array]:
+    """Blur + FAST on (B, H, W) uint8 frames, chosen by where XLA compiles.
+
+    The choice is made when the program is lowered, so one jitted pipeline
+    placed on the CPU (tests, the in-process reference run) takes the plain
+    path and placed on a GPU takes the kernel; lowering for any other
+    platform fails.
+    """
+    args = dict(threshold=threshold, contiguous=contiguous)
+    return jax.lax.platform_dependent(
+        images,
+        cpu=partial(blur_fast_impl("cpu"), **args),
+        cuda=partial(blur_fast_impl("gpu"), **args),
+    )
 
 
 class FeatureDetector:
@@ -45,21 +97,12 @@ class FeatureDetector:
         )
         self.blur_kernel = jnp.asarray(gaussian_kernel())
         self.bin_weights = None
-        self.bin_weights_3d = None
         if config.brief_quantized_bins > 0:
             W, _ = build_brief_bin_weights(
                 self.pattern, config.patch_size, config.brief_quantized_bins
             )
             self.bin_weights = jnp.asarray(W)
-            # (bins, S2p, P) layout for the Pallas own-bin kernel.
-            bins = config.brief_quantized_bins
-            s2p = W.shape[0]
-            self.bin_weights_3d = jnp.asarray(
-                W.reshape(s2p, bins, -1).transpose(1, 0, 2).copy()
-            )
         self.moment_weights = jnp.asarray(disc_moment_weights(config.patch_size))
-        # The fused Pallas kernels only lower on real TPUs.
-        self.use_pallas = jax.default_backend() == "tpu"
 
     # --- detect ---------------------------------------------------------------
     def detect(self, image: jax.Array) -> KeypointSet:
@@ -87,19 +130,16 @@ class FeatureDetector:
             self.blur_kernel,
             self.pattern,
             self.bin_weights,
+            self.moment_weights,
             self.config.num_brief_pairs,
             self.config.patch_size,
             self.config.brief_quantized_bins,
         )
 
     def detect_and_compute(self, image: jax.Array) -> tuple[KeypointSet, jax.Array]:
-        """Fused path on TPU (one Pallas pass produces blur+FAST); XLA
-        reference path elsewhere (bit-identical, see test_pallas_frontend)."""
-        if self.use_pallas:
-            kps, desc = self.detect_and_compute_batch(image[None])
-            return jax.tree.map(lambda a: a[0], kps), desc[0]
-        kps = self.detect(image)
-        return self.compute(image, kps)
+        """One (H, W) frame through :meth:`detect_and_compute_batch`."""
+        kps, desc = self.detect_and_compute_batch(image[None])
+        return jax.tree.map(lambda a: a[0], kps), desc[0]
 
     # --- batched --------------------------------------------------------------
     def detect_and_compute_batch(self, images: jax.Array) -> tuple[KeypointSet, jax.Array]:
@@ -119,130 +159,32 @@ class FeatureDetector:
             return self._level_batch(images, c.max_keypoints)
         return self._pyramid_batch(images)
 
-    def _fused_nms_ok(self, h: int, w: int, max_keypoints: int) -> bool:
-        """Whether the blur+FAST+NMS single-pass kernel applies here.
-
-        Mirrors select_keypoints' exact-tile-pool preconditions (unshifted
-        index recovery, ≥max_keypoints tiles) plus the kernel's halo bound.
-        """
-        import os
-
-        from tpuslam.kernels.frontend_pallas import NMS_HALO
-
-        c = self.config
-        tile = c.suppression_window_size
-        if not (self.use_pallas and c.non_max_suppression and tile >= 2):
-            return False
-        # OFF by default: interleaved A/B measured the in-kernel NMS ~10%
-        # SLOWER end-to-end (620-630 vs 697 FPS VO) — the cross-sublane
-        # roll/shuffle work (even at O(log window) shifts) far outweighs
-        # the HBM planes it saves on this VPU-latency-bound kernel.  Kept
-        # as an opt-in measured experiment (BASELINE.md round-5 notes).
-        if os.environ.get("TPUSLAM_NMS_FUSED", "0") != "1":
-            return False
-        n_tiles = -(-h // tile) * (-(-w // tile))
-        return (
-            tile - 1 + 3 <= NMS_HALO
-            and h * w < (1 << 20)
-            and n_tiles >= max_keypoints
-        )
-
     def _level_batch(
         self, images: jax.Array, max_keypoints: int
     ) -> tuple[KeypointSet, jax.Array]:
         """Single-scale batched detect+compute with an explicit capacity."""
         c = self.config
-        if self.use_pallas and images.shape[-2] >= 64 and images.shape[-1] >= 128:
-            from tpuslam.frontend.fast import select_from_key
-            from tpuslam.kernels.frontend_pallas import (
-                fused_frontend_batch,
-                fused_frontend_nms_batch,
+        blur, corner, score = blur_fast_batch(
+            images,
+            threshold=c.intensity_threshold,
+            contiguous=c.contiguous_pixels_threshold,
+        )
+        kps = jax.vmap(
+            lambda co, sc: select_keypoints(
+                co, sc, nms=c.non_max_suppression,
+                window=c.suppression_window_size, max_keypoints=max_keypoints,
             )
+        )(corner, score)
+        return jax.vmap(self._describe)(blur, kps)
 
-            if self._fused_nms_ok(
-                images.shape[-2], images.shape[-1], max_keypoints
-            ):
-                # One-pass blur+FAST+NMS: the kernel emits the post-NMS
-                # packed key directly — no corner/score planes and no
-                # separate full-resolution NMS passes through HBM.
-                blur, keep_key = fused_frontend_nms_batch(
-                    images,
-                    threshold=c.intensity_threshold,
-                    contiguous=c.contiguous_pixels_threshold,
-                    window=c.suppression_window_size,
-                )
-                kps = jax.vmap(
-                    lambda k: select_from_key(
-                        k, window=c.suppression_window_size,
-                        max_keypoints=max_keypoints,
-                    )
-                )(keep_key)
-                if c.brief_quantized_bins > 0:
-                    return _compute_batch_fused(
-                        blur, kps, self.pattern, self.bin_weights_3d,
-                        self.moment_weights, c.num_brief_pairs, c.patch_size,
-                        c.brief_quantized_bins,
-                    )
-                return jax.vmap(
-                    lambda bl, k: _compute_from_blurred(
-                        bl, k, self.pattern, self.bin_weights,
-                        c.num_brief_pairs, c.patch_size, c.brief_quantized_bins,
-                    )
-                )(blur, kps)
-
-            blur, corner, score = fused_frontend_batch(
-                images,
-                threshold=c.intensity_threshold,
-                contiguous=c.contiguous_pixels_threshold,
-            )
-            kps = jax.vmap(
-                lambda co, sc: select_keypoints(
-                    co, sc, nms=c.non_max_suppression,
-                    window=c.suppression_window_size, max_keypoints=max_keypoints,
-                )
-            )(corner, score)
-            if os.environ.get("TPUSLAM_SELECT_DOUBLE") == "1":
-                # measurement aid (BASELINE doubling-probe protocol): run
-                # the NMS+top-k select a second time on a perturbed score
-                # and fold a barriered zero into the output — the end-to-
-                # end FPS delta is the select stage's true in-situ cost.
-                kps_b = jax.vmap(
-                    lambda co, sc: select_keypoints(
-                        co, sc, nms=c.non_max_suppression,
-                        window=c.suppression_window_size,
-                        max_keypoints=max_keypoints,
-                    )
-                )(corner, score + 1)
-                z = jax.lax.optimization_barrier(kps_b.response[0, 0]) * 0.0
-                kps = kps._replace(xy=kps.xy + z)
-            if c.brief_quantized_bins > 0:
-                return _compute_batch_fused(
-                    blur, kps, self.pattern, self.bin_weights_3d,
-                    self.moment_weights, c.num_brief_pairs, c.patch_size,
-                    c.brief_quantized_bins,
-                )
-            return jax.vmap(
-                lambda bl, k: _compute_from_blurred(
-                    bl, k, self.pattern, self.bin_weights, c.num_brief_pairs,
-                    c.patch_size, c.brief_quantized_bins,
-                )
-            )(blur, kps)
-
-        def one(im):
-            kps = detect_keypoints(
-                im,
-                threshold=c.intensity_threshold,
-                contiguous=c.contiguous_pixels_threshold,
-                nms=c.non_max_suppression,
-                window=c.suppression_window_size,
-                max_keypoints=max_keypoints,
-            )
-            return _compute_impl(
-                im, kps, self.blur_kernel, self.pattern, self.bin_weights,
-                c.num_brief_pairs, c.patch_size, c.brief_quantized_bins,
-            )
-
-        return jax.vmap(one)(images)
+    def _describe(
+        self, blurred: jax.Array, kps: KeypointSet
+    ) -> tuple[KeypointSet, jax.Array]:
+        c = self.config
+        return _compute_from_blurred(
+            blurred, kps, self.pattern, self.bin_weights, self.moment_weights,
+            c.num_brief_pairs, c.patch_size, c.brief_quantized_bins,
+        )
 
     def _feasible_levels(self, h: int, w: int) -> list[tuple[int, int, int]]:
         """(level, h_l, w_l) for every level large enough to detect on."""
@@ -267,20 +209,12 @@ class FeatureDetector:
         caps = [max(32, int(round(c.max_keypoints * wt / total))) for wt in weights]
         caps[0] += c.max_keypoints - sum(caps)
 
-        import os
-
-        # OFF by default: bit-identical to the loop (test_pyramid), but
-        # interleaved A/B in the FUSED VO program measured the canvas
-        # ~12% slower (413-427 vs 469 FPS pyramid) — XLA already overlaps
-        # the per-level work in situ, and the standalone detector harness
-        # that motivated it overstated per-level fixed costs (BASELINE.md
-        # round-5 notes; the in-situ probe is the arbiter, again).
+        # OFF by default: bit-identical to the loop (test_pyramid); an
+        # experiment that runs blur+FAST once over all levels stacked.
         if len(levels) > 1 and os.environ.get(
             "TPUSLAM_PYRAMID_CANVAS", "0"
         ) == "1":
             return self._pyramid_batch_canvas(images, levels, caps)
-
-        import os
 
         # Cascade: resize each level from the PREVIOUS level (the OpenCV
         # ORB buildPyramid convention) instead of from level 0 — reads
@@ -288,16 +222,6 @@ class FeatureDetector:
         # per level.  Interpolation compounds slightly (bilinear of
         # bilinear); the pyramid quality tests gate the behaviour.
         cascade = os.environ.get("TPUSLAM_PYRAMID_CASCADE", "0") == "1"
-        # Banded-block resize on TPU (same weights, 3-9× smaller matmul
-        # contraction, see _resize_weight_blocks); dense jax.image.resize
-        # on CPU (tests: full-f32 DEFAULT there, bit-identical to before)
-        # and as the TPUSLAM_RESIZE_BANDED=0 fallback.  Decided HERE (a
-        # plain function re-run on every outer trace), not inside the
-        # inner-jitted resize, so in-process A/B can flip it per pipeline.
-        banded = (
-            self.use_pallas
-            and os.environ.get("TPUSLAM_RESIZE_BANDED", "1") == "1"
-        )
         kp_parts: list[KeypointSet] = []
         desc_parts: list[jax.Array] = []
         prev = images
@@ -305,26 +229,9 @@ class FeatureDetector:
             if level == 0:
                 img = images
             else:
-                img = _resize_batch_u8(
-                    prev if cascade else images, h_l, w_l, banded=banded
-                )
+                img = _resize_batch_u8(prev if cascade else images, h_l, w_l)
             prev = img
             kps, desc = self._level_batch(img, cap)
-            if level > 0 and os.environ.get("TPUSLAM_LEVEL_DOUBLE") == "1":
-                # measurement aid: repeat the ENTIRE non-resize per-level
-                # work (blur+FAST kernel, NMS+select, orientation+BRIEF)
-                # of levels ≥1 on a perturbed image — the FPS delta is the
-                # true in-situ cost of the pyramid's extra detect/describe
-                # passes, separating them from the resize line
-                # (TPUSLAM_RESIZE_DOUBLE probes that one).
-                _, desc_b = self._level_batch(img ^ jnp.uint8(1), cap)
-                z = (
-                    jax.lax.optimization_barrier(desc_b[0, 0, 0]).astype(
-                        jnp.float32
-                    )
-                    * 0.0
-                )
-                kps = kps._replace(xy=kps.xy + z)
             scale = jnp.float32(c.scale_factor**level)
             kps = kps._replace(xy=kps.xy * scale)
             kp_parts.append(kps)
@@ -337,10 +244,8 @@ class FeatureDetector:
     ) -> tuple[KeypointSet, jax.Array]:
         """Pyramid detect via ONE stacked-canvas blur+FAST pass.
 
-        The per-level loop paid the padding copy + Pallas kernel launch
-        four times; the round-5 ladder (BASELINE.md) measured those fixed
-        costs, not pixel work, as most of the pyramid's marginal cost.
-        All levels stack vertically into one (B, ΣH_l, W) canvas and blur
+        The per-level loop pays a blur+FAST launch per level; here all
+        levels stack vertically into one (B, ΣH_l, W) canvas and blur
         + FAST run ONCE over it.  Bit-exactness with the per-level loop
         (asserted by test_pyramid) holds because every per-level edge
         rule is reapplied in level coordinates:
@@ -375,25 +280,11 @@ class FeatureDetector:
             canvas = jax.lax.dynamic_update_slice(canvas, img, (0, o_l, 0))
             imgs.append(img)
 
-        if self.use_pallas and H_canvas >= 64 and W >= 128:
-            from tpuslam.kernels.frontend_pallas import fused_frontend_batch
-
-            blur_c, corner_c, score_c = fused_frontend_batch(
-                canvas,
-                threshold=c.intensity_threshold,
-                contiguous=c.contiguous_pixels_threshold,
-            )
-        else:
-            from tpuslam.frontend.fast import fast_response_and_mask
-
-            corner_c, score_c = jax.vmap(
-                lambda im: fast_response_and_mask(
-                    im, c.intensity_threshold, c.contiguous_pixels_threshold
-                )
-            )(canvas)
-            blur_c = jax.vmap(
-                lambda im: gaussian_blur_u8(im, self.blur_kernel)
-            )(canvas)
+        blur_c, corner_c, score_c = blur_fast_batch(
+            canvas,
+            threshold=c.intensity_threshold,
+            contiguous=c.contiguous_pixels_threshold,
+        )
 
         # static per-level border-3 interior mask (kills gap/cross-level
         # corners and reapplies each level's FAST border exclusion)
@@ -428,25 +319,7 @@ class FeatureDetector:
                 (row < 2) | (row >= h_l - 2) | (col < 2) | (col >= w_l - 2)
             )
             blur_l = jnp.where(border[None], img, blur_l)
-            if (
-                self.use_pallas
-                and c.brief_quantized_bins > 0
-                and h_l >= 64
-                and w_l >= 128
-            ):
-                kps2, desc = _compute_batch_fused(
-                    blur_l, kps, self.pattern, self.bin_weights_3d,
-                    self.moment_weights, c.num_brief_pairs, c.patch_size,
-                    c.brief_quantized_bins,
-                )
-            else:
-                kps2, desc = jax.vmap(
-                    lambda bl, k: _compute_from_blurred(
-                        bl, k, self.pattern, self.bin_weights,
-                        c.num_brief_pairs, c.patch_size,
-                        c.brief_quantized_bins,
-                    )
-                )(blur_l, kps)
+            kps2, desc = jax.vmap(self._describe)(blur_l, kps)
             scale = jnp.float32(c.scale_factor**level)
             kps2 = kps2._replace(xy=kps2.xy * scale)
             kp_parts.append(kps2)
@@ -457,161 +330,27 @@ class FeatureDetector:
         return kps, jnp.concatenate(desc_parts, axis=1)
 
 
-_RESIZE_BLOCKS_CACHE: dict = {}
-
-
-def _resize_weight_blocks(
-    n_in: int, n_out: int, tile: int = 128
-) -> tuple[tuple[int, ...], jax.Array]:
-    """Banded tile blocks of jax.image.resize's linear weight matrix.
-
-    ``jax.image.resize(method="linear")`` is a pair of DENSE matmuls with
-    weight matrices that are ~99% zeros: the antialiased triangle kernel at
-    pyramid scales (1.2-1.73) has only 3-5 nonzero taps per output row out
-    of the full 512/1392-wide contraction.  The in-situ doubling probe
-    measured those dense matmuls at 0.38 ms/frame — the pyramid config's
-    single largest marginal line (BASELINE.md round-5).  This extracts the
-    EXACT weight matrix (by resizing an identity — resize is linear, so
-    ``resize(I)`` IS the matrix) and cuts it into per-output-tile banded
-    blocks: each block of ``tile`` output rows only contracts over the
-    ``S ≈ tile·scale + taps`` input rows its band touches, shrinking the
-    matmul contraction 3-9× at identical weights.
-
-    Returns ``(starts, blocks)``: per-tile input offsets and a
-    ``(T, tile, S)`` bf16 block stack (bf16 matches what DEFAULT-precision
-    matmuls already do to their operands on TPU).
-    """
-    import numpy as np
-
-    key = (n_in, n_out, tile)
-    hit = _RESIZE_BLOCKS_CACHE.get(key)
-    if hit is not None:
-        return hit
-    # ensure_compile_time_eval: this runs at first trace of the jitted
-    # resize — force the identity-resize to evaluate eagerly instead of
-    # being staged into the surrounding jaxpr.
-    with jax.ensure_compile_time_eval():
-        wm = np.asarray(
-            jax.image.resize(
-                jnp.eye(n_in, dtype=jnp.float32), (n_out, n_in),
-                method="linear", precision=jax.lax.Precision.HIGHEST,
-            )
-        )
-    n_tiles = -(-n_out // tile)
-    wp = np.zeros((n_tiles * tile, n_in), np.float32)
-    wp[:n_out] = wm
-    spans = []
-    for t in range(n_tiles):
-        rows = wp[t * tile : (t + 1) * tile]
-        nz = np.nonzero(np.abs(rows).sum(axis=0) > 0)[0]
-        lo, hi = (int(nz[0]), int(nz[-1]) + 1) if nz.size else (0, 1)
-        spans.append((lo, hi))
-    span = max(hi - lo for lo, hi in spans)
-    span = min(-(-span // 8) * 8, n_in)  # sublane-aligned contraction dim
-    starts = tuple(min(max(lo, 0), n_in - span) for lo, _ in spans)
-    blocks = np.stack(
-        [wp[t * tile : (t + 1) * tile, s : s + span] for t, s in enumerate(starts)]
-    )
-    # Cache HOST arrays only: a jnp constant created under an ambient jit
-    # trace would cache a tracer (leaked across traces); callers convert.
-    out = (starts, blocks)
-    _RESIZE_BLOCKS_CACHE[key] = out
-    return out
-
-
 @partial(jax.jit, static_argnames=("h_out", "w_out"))
-def _resize_banded_f32(images: jax.Array, h_out: int, w_out: int) -> jax.Array:
-    """Banded-block bilinear resize: (B, H, W) → (B, h_out, w_out) f32.
-
-    Same weights as ``jax.image.resize`` (see ``_resize_weight_blocks``);
-    operands in bf16 exactly as a DEFAULT-precision dense matmul would be,
-    accumulation in f32.
-    """
-    b, h, w = images.shape
-    v_starts, v_blocks_np = _resize_weight_blocks(h, h_out)
-    h_starts, h_blocks_np = _resize_weight_blocks(w, w_out)
-    v_blocks = jnp.asarray(v_blocks_np, jnp.bfloat16)
-    h_blocks = jnp.asarray(h_blocks_np, jnp.bfloat16)
-    sv = v_blocks.shape[2]
-    # Per-tile dots with b as a REAL dot batch dim (broadcast blocks):
-    # every operand/output keeps its natural (b, M, N) layout — a single
-    # batched einsum here lowered to grouped convolutions plus two ~32 MB
-    # relayout copies per pass (inspected HLO), which ate the entire FLOP
-    # saving.  T is 3-10, the blocks are ≤1 MB broadcast, and each dot is
-    # a clean (K, S)×(S, N) GEMM.
-    parts = []
-    for t, s in enumerate(v_starts):
-        tile = jax.lax.slice_in_dim(images, s, s + sv, axis=1)  # (B, Sv, W)
-        blk = jnp.broadcast_to(v_blocks[t], (b, *v_blocks[t].shape))
-        parts.append(
-            jnp.einsum(
-                "bks,bsw->bkw",
-                blk,
-                tile.astype(jnp.bfloat16),
-                preferred_element_type=jnp.float32,
-            )
-        )
-    inter = jnp.concatenate(parts, axis=1)[:, :h_out].astype(jnp.bfloat16)
-    sh = h_blocks.shape[2]
-    parts = []
-    for t, s in enumerate(h_starts):
-        tile = jax.lax.slice_in_dim(inter, s, s + sh, axis=2)  # (B, h_out, Sh)
-        blk = jnp.broadcast_to(h_blocks[t], (b, *h_blocks[t].shape))
-        parts.append(
-            jnp.einsum(
-                "bhs,bks->bhk",
-                tile,
-                blk,
-                preferred_element_type=jnp.float32,
-            )
-        )
-    return jnp.concatenate(parts, axis=2)[:, :, :w_out]
-
-
-@partial(jax.jit, static_argnames=("h_out", "w_out", "banded"))
-def _resize_batch_u8(
-    images: jax.Array, h_out: int, w_out: int, banded: bool = False
-) -> jax.Array:
+def _resize_batch_u8(images: jax.Array, h_out: int, w_out: int) -> jax.Array:
     """Bilinear (B, H, W) uint8 resize — the pyramid downscale.
 
-    DEFAULT matmul precision, not jax.image.resize's HIGHEST (a 6-pass
-    f32 emulation on the MXU): the three pyramid resizes at HIGHEST were
-    the pyramid config's single largest marginal cost (~0.5 ms/frame,
-    round-5 ladder in BASELINE.md).  bf16 weight quantisation moves ≤2
-    gray levels on ~13% of pixels of an already low-pass-filtered
-    downsample — far below the FAST intensity threshold (20); pixel
-    values themselves are exact in bf16 (integers ≤ 256).  On CPU
-    (tests) DEFAULT is full f32 — bit-identical to before.
+    DEFAULT matmul precision, not jax.image.resize's HIGHEST: pixel values
+    are exact at any matmul precision (integers ≤ 255), and rounded
+    weights move a few pixels of an already low-pass-filtered downsample
+    by ≤ 2 gray levels, far below the FAST intensity threshold (20).  On
+    the CPU, DEFAULT is full float32.
     """
     precision = (
-        jax.lax.Precision.HIGHEST  # the pre-round-5 behaviour, for A/B
+        jax.lax.Precision.HIGHEST
         if os.environ.get("TPUSLAM_RESIZE_HIGHEST") == "1"
         else jax.lax.Precision.DEFAULT
     )
-    # ``banded`` is a STATIC argument decided by the caller (trace-time
-    # env reads inside this inner-jitted function would be frozen into
-    # the first trace's cached jaxpr and silently reused by later outer
-    # traces — an in-process A/B could never flip it).
-    banded = banded and os.environ.get("TPUSLAM_RESIZE_HIGHEST") != "1"
-
-    def one_resize(imgs):
-        if banded:
-            return _resize_banded_f32(imgs, h_out, w_out)
-        return jax.image.resize(
-            imgs.astype(jnp.float32),
-            (imgs.shape[0], h_out, w_out),
-            method="linear",
-            precision=precision,
-        )
-
-    out = one_resize(images)
-    if os.environ.get("TPUSLAM_RESIZE_DOUBLE") == "1":  # measurement aid:
-        # run the resize a second time on a perturbed input and fold a
-        # zero into the output (CSE/DCE-proof) — the end-to-end FPS delta
-        # is the resize's true in-situ cost (the BASELINE doubling-probe
-        # protocol).
-        out2 = one_resize(images ^ jnp.uint8(1))
-        out = out + (jax.lax.optimization_barrier(out2[0, 0, 0]) * 0.0)
+    out = jax.image.resize(
+        images.astype(jnp.float32),
+        (images.shape[0], h_out, w_out),
+        method="linear",
+        precision=precision,
+    )
     return jnp.clip(jnp.round(out), 0, 255).astype(jnp.uint8)
 
 
@@ -622,55 +361,16 @@ def _compute_impl(
     blur_kernel: jax.Array,
     pattern: BriefPattern,
     bin_weights: jax.Array | None,
+    moment_weights: jax.Array,
     num_pairs: int,
     patch_size: int,
     quantized_bins: int,
 ) -> tuple[KeypointSet, jax.Array]:
     blurred = gaussian_blur_u8(image, blur_kernel)
     return _compute_from_blurred(
-        blurred, kps, pattern, bin_weights, num_pairs, patch_size, quantized_bins
+        blurred, kps, pattern, bin_weights, moment_weights, num_pairs,
+        patch_size, quantized_bins,
     )
-
-
-@partial(jax.jit, static_argnames=("num_pairs", "patch_size", "quantized_bins"))
-def _compute_batch_fused(
-    blurred: jax.Array,  # (B, H, W) uint8
-    kps: KeypointSet,  # (B, K, ...) batched
-    pattern: BriefPattern,
-    bin_weights_3d: jax.Array,  # (bins, S2p, P) int8
-    moment_weights: jax.Array,  # (S2p, 2) int8
-    num_pairs: int,
-    patch_size: int,
-    quantized_bins: int,
-) -> tuple[KeypointSet, jax.Array]:
-    """Batched orientation + quantised BRIEF sharing one patch extraction.
-
-    The TPU throughput path: patches are extracted once per keypoint,
-    orientation moments are a (K, S2p)·(S2p, 2) int8 matmul over them, and
-    the own-bin comparison dots come from the Pallas kernel that never
-    materialises the (K, bins·P) tensor (``kernels/brief_pallas.py``).
-    Bit-exact with the per-frame XLA quantised path (see test_brief).
-    """
-    from tpuslam.kernels.brief_pallas import (
-        brief_own_bin_dots,
-        extract_brief_patches_tpu,
-    )
-
-    h, w = blurred.shape[-2:]
-    patches = extract_brief_patches_tpu(blurred, kps.xy, patch_size)
-    angles = jax.vmap(
-        lambda p, k: orientations_from_patches(
-            p, moment_weights, k, patch_size, (h, w)
-        )
-    )(patches, kps)  # (B, K)
-    bin_idx = quantize_angles(angles, quantized_bins)  # (B, K)
-    own = brief_own_bin_dots(patches, bin_idx, bin_weights_3d)  # (B, K, P)
-    desc = jax.vmap(
-        lambda o, bi, k: brief_bits_from_dots(
-            o, bi, k, pattern, quantized_bins, num_pairs, patch_size, (h, w)
-        )
-    )(own, bin_idx, kps)
-    return kps._replace(angle=angles), desc
 
 
 @partial(jax.jit, static_argnames=("num_pairs", "patch_size", "quantized_bins"))
@@ -679,17 +379,28 @@ def _compute_from_blurred(
     kps: KeypointSet,
     pattern: BriefPattern,
     bin_weights: jax.Array | None,
+    moment_weights: jax.Array,
     num_pairs: int,
     patch_size: int,
     quantized_bins: int,
 ) -> tuple[KeypointSet, jax.Array]:
-    angles = compute_orientations(blurred, kps, patch_size)
+    """Orientation + BRIEF for one frame's keypoints.
+
+    The quantised path extracts each keypoint's patch once and takes both
+    the orientation moments (an int8 product with the disc weights, equal
+    to :func:`compute_orientations`) and the own-bin BRIEF dots from it.
+    """
     if quantized_bins > 0 and bin_weights is not None:
-        descriptors = compute_brief_descriptors_quantized(
-            blurred, kps, angles, pattern, bin_weights, num_pairs, patch_size,
-            quantized_bins,
+        patches = extract_brief_patches_i8(blurred, kps, patch_size)
+        angles = orientations_from_patches(
+            patches, moment_weights, kps, patch_size, blurred.shape
+        )
+        descriptors = quantized_brief_from_patches(
+            patches, kps, angles, pattern, bin_weights, num_pairs, patch_size,
+            quantized_bins, blurred.shape,
         )
     else:
+        angles = compute_orientations(blurred, kps, patch_size)
         descriptors = compute_brief_descriptors(
             blurred, kps, angles, pattern, num_pairs, patch_size
         )

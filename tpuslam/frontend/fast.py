@@ -16,7 +16,7 @@ Reference semantics (``src/frontend/feature_detector.cpp:56-203``):
     (``feature_detector.cpp:190-203``);
   * non-max suppression, then keypoints.
 
-TPU-native restructuring: instead of a per-pixel scalar loop, the 16
+Accelerator-first restructuring: instead of a per-pixel scalar loop, the 16
 neighbour planes are materialised with ``jnp.roll`` and every test becomes a
 (16, H, W) boolean tensor op; the circular-run test is an AND-reduction over
 rotated masks.  Greedy sorted NMS (inherently sequential, O(N²),
@@ -93,7 +93,7 @@ def fast_response_and_mask(
     """Compute the (H, W) corner mask and SAD score map.
 
     ``image``: (H, W) integer-valued (uint8 or int); returns
-    ``(corner_mask bool, score int32)`` with the border-3 frame excluded.
+    ``(corner_mask bool, score int32)``, both zero in the border-3 frame.
     """
     img = image.astype(jnp.int32)
     h, w = img.shape
@@ -119,7 +119,9 @@ def fast_response_and_mask(
     in_border = (row >= BORDER) & (row < h - BORDER) & (col >= BORDER) & (col < w - BORDER)
 
     corner = pretest & segment & in_border
-    score = jnp.sum(jnp.abs(neighbors - center), axis=0)
+    # Rolled neighbours wrap around inside the border; the score is only
+    # read at corners, and is defined as 0 there.
+    score = jnp.where(in_border, jnp.sum(jnp.abs(neighbors - center), axis=0), 0)
     return corner, score
 
 

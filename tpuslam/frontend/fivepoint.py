@@ -4,7 +4,7 @@ The reference's ``cv::findEssentialMat`` (``pose_estimator.cpp:42``) is the
 Nistér 5-point algorithm inside OpenCV's sequential RANSAC.  A 5-point
 sample needs 3 fewer inliers than the repo's 8-point sampler, so at equal
 hypothesis count the probability of an all-inlier sample is far higher on
-contaminated data — this module supplies that solver in a TPU-native form:
+contaminated data — this module supplies that solver in a batched, vectorised form:
 
   * the 4-dimensional nullspace of each 5×9 epipolar system comes from a
     batched Householder QR (``geometry.nullspace_basis``) — no LAPACK;
@@ -18,7 +18,7 @@ contaminated data — this module supplies that solver in a TPU-native form:
   * real roots come from a fixed-iteration Durand–Kerner solver in
     complex64 on a Fujiwara-balanced polynomial (the raw polynomial's
     leading coefficient is regularly ~1e-6 of its largest, which overflows
-    complex64 at the Cauchy radius) — TPU has no nonsymmetric ``eig``, and
+    complex64 at the Cauchy radius) — XLA has no batched nonsymmetric ``eig`` on accelerators, and
     Durand–Kerner is pure vectorised arithmetic (all 10 roots of all
     hypotheses in parallel);
   * each real root back-substitutes to (x, y) via the best-conditioned

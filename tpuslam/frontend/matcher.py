@@ -12,8 +12,8 @@ Reference semantics (``src/frontend/feature_matcher.cpp:71-204``):
     (``:176-182``);
   * optional global top-``GoodMatchesCount`` filter by distance (``:191-204``).
 
-TPU-native restructuring: the whole N1×N2 penalised distance matrix is
-produced in one MXU bit-matmul + elementwise pass; best/second-best are two
+Accelerator-first restructuring: the whole N1×N2 penalised distance matrix
+is produced in one bit-matmul + elementwise pass; best/second-best are two
 masked min-reductions; the top-K filter is one ``top_k``.  Output is a
 fixed-capacity ``MatchSet`` (padded + masked) so the matcher ``vmap``s over
 batches of frame pairs.
@@ -34,13 +34,12 @@ from tpuslam.config.schema import MatcherConfig
 from tpuslam.frontend.fast import KeypointSet
 
 _INT_MAX = jnp.iinfo(jnp.int32).max
-# Data-movement layout of the (N1, N2) distance matrix (round-5 roofline
-# pass; BASELINE.md "MFU / roofline": match is the highest-traffic stage at
-# 49% HBM).  The optimised layout is semantics-identical (oracle tests
+# Data-movement layout of the (N1, N2) distance matrix (the matcher moves
+# more bytes than any other stage of the VO chunk).  The optimised layout is semantics-identical (oracle tests
 # unchanged): int16 distances (max penalised distance ≤ 1016 ≪ 32767),
 # second-best by equality-masked min instead of a scatter knockout (the
 # .at[].set rewrite materialised the full matrix twice), and the pixel
-# distance d² from a (N1,2)×(2,N2) MXU matmul expansion instead of the
+# distance d² from a (N1,2)×(2,N2) matmul expansion instead of the
 # (N1, N2, 2) broadcast-subtract tensor.  TPUSLAM_MATCH_LEGACY=1 restores
 # the round-4 layout (the interleaved A/B comparator).
 _LEGACY = os.environ.get("TPUSLAM_MATCH_LEGACY") == "1"
@@ -77,7 +76,7 @@ def penalized_distance_matrix(
         d2 = jnp.sum((xy1[:, None, :] - xy2[None, :, :]) ** 2, axis=-1)
     else:
         # ‖a−b‖² = ‖a‖² + ‖b‖² − 2a·b: the cross term is a (N1,2)×(2,N2)
-        # MXU matmul, so no (N1, N2, 2) difference tensor exists.  The
+        # matmul, so no (N1, N2, 2) difference tensor exists.  The
         # expansion's cancellation error (~0.25 px² at KITTI coordinate
         # magnitudes) only matters near d≈0, far from the penalty
         # threshold (d > 500 px) where the value is actually used.

@@ -11,7 +11,7 @@ Reference pipeline (``src/frontend/pose_estimator.cpp:18-104`` and
     cheirality over *all* matches (``simple_pose_recover.cpp:35-97``);
   * triangulate matched points against P1=K[I|0], P2=K[R|t] (``:69-104``).
 
-TPU-native restructuring (SURVEY §7 step 4): RANSAC's sequential
+Accelerator-first restructuring (SURVEY §7 step 4): RANSAC's sequential
 hypothesize-and-verify loop becomes *batched hypothesis evaluation* — all H
 8-point samples are drawn up front with ``jax.random``, all H essential
 matrices are solved as one batched 9×9 eigenproblem, and all H×M Sampson
@@ -71,9 +71,8 @@ def _solve_e_from_rows(
     """Least-squares essential matrix from constraint rows.
 
     ``rows``: (..., N, 9); optional weights (..., N).  The nullspace comes
-    from one-sided Jacobi directly on the rows (batched eigh of the 9×9
-    normal matrix costs ~26 ms for 2048 hypotheses on TPU; Jacobi with
-    dynamic-slice column rotations stays on the VPU).  With ``project`` the
+    from one-sided Jacobi directly on the rows (no batched eigh of the 9×9
+    normal matrix; Jacobi's column rotations are elementwise work).  With ``project`` the
     result is snapped to the essential manifold (singular values → (1,1,0));
     hypothesis scoring skips this (Sampson scoring is valid for any rank-2-ish
     F) and only the final model is projected.
@@ -112,6 +111,21 @@ def sampson_error_sq(
     return e2
 
 
+def msac_scores(
+    E: jax.Array, x1: jax.Array, x2: jax.Array, valid: jax.Array, thr
+) -> jax.Array:
+    """MSAC score of each model in ``E`` (..., 3, 3): the Sampson error over
+    ``thr``, truncated at 1, summed over matches.
+
+    Invalid matches contribute the truncation cap so degenerate inputs
+    don't look artificially good.  XLA fuses the Sampson chain into the
+    row sum, so the (..., M) error tensor need not reach device memory.
+    """
+    err = sampson_error_sq(E, x1, x2)
+    trunc = jnp.where(valid, jnp.minimum(err / thr, 1.0), 0.0)
+    return jnp.sum(trunc, axis=-1) + jnp.sum(~valid)
+
+
 def decompose_essential(E: jax.Array) -> tuple[jax.Array, jax.Array, jax.Array]:
     """E → (R1, R2, t) with det-corrected rotations.
 
@@ -124,7 +138,7 @@ def decompose_essential(E: jax.Array) -> tuple[jax.Array, jax.Array, jax.Array]:
     R2 = jnp.matmul(jnp.matmul(u, W.T, precision="highest"), vt, precision="highest")
     R1 = jnp.where(jnp.linalg.det(R1) < 0, -R1, R1)
     R2 = jnp.where(jnp.linalg.det(R2) < 0, -R2, R2)
-    # TPU float32 SVD leaves ~1e-2 orthonormality drift; polish with Newton
+    # float32 SVD can leave ~1e-2 orthonormality drift; polish with Newton
     # iterations (pure matmuls) to restore R Rᵀ = I to float32 precision.
     R1 = orthonormalize_rotation(R1)
     R2 = orthonormalize_rotation(R2)
@@ -169,7 +183,7 @@ def cheirality_votes(
 
 @partial(
     jax.jit,
-    static_argnames=("num_hypotheses", "sample_size", "min_matches", "use_pallas"),
+    static_argnames=("num_hypotheses", "sample_size", "min_matches"),
 )
 def estimate_relative_pose(
     pts1: jax.Array,
@@ -182,7 +196,6 @@ def estimate_relative_pose(
     sample_size: int = 8,
     inlier_threshold_px: float = 1.0,
     min_matches: int = 8,
-    use_pallas: bool | None = None,
 ) -> PoseResult:
     """Batched-RANSAC two-view pose from matched pixel points.
 
@@ -204,8 +217,8 @@ def estimate_relative_pose(
 
     # --- hypothesis sampling: H×S indices over valid matches ----------------
     # Uniform independent draws remapped onto the valid set.  (Gumbel top-k
-    # would sample without replacement but costs ~3.5 ms for (2048, 1024) on
-    # TPU; a duplicate index inside one 8-sample merely wastes that
+    # would sample without replacement at the cost of a (H, M) top-k; a
+    # duplicate index inside one 8-sample merely wastes that
     # hypothesis, which is noise at H = 2048.)
     valid_rank = jnp.cumsum(valid.astype(jnp.int32)) - 1  # rank among valid
     # lookup: rank -> match index
@@ -239,9 +252,8 @@ def estimate_relative_pose(
         # models are re-solved over all inliers by the LO rounds below at
         # full sweep count — so 3 Jacobi sweeps suffice here (measured:
         # identical winners and rotation errors).  An exact MGS minimal
-        # solver (nullvec_minimal) measures 25% faster standalone but 1.8×
-        # SLOWER fused into this program (XLA fusion interaction) — keep
-        # Jacobi here.
+        # solver (nullvec_minimal) was faster standalone but slower fused
+        # into this program (XLA fusion interaction) — keep Jacobi here.
         E_hyp = _solve_e_from_rows(rows, project=False, sweeps=3)  # (H, 3, 3)
         hyp_ok = None
     n_models = E_hyp.shape[0]
@@ -251,23 +263,7 @@ def estimate_relative_pose(
     # minimal 8-point hypotheses are noisy.
     focal = 0.5 * (Kf[0, 0] + Kf[1, 1])
     thr = (inlier_threshold_px / focal) ** 2
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
-    if use_pallas and n_models % 256 == 0 and M % 128 == 0:
-        # Fused VMEM scoring: never materialises the (H, M) error tensor
-        # (kernels/pose_pallas.py; ~670 MB/chunk of HBM traffic saved).
-        from tpuslam.kernels.pose_pallas import build_msac_operand, msac_scores_pallas
-
-        P_op = build_msac_operand(x1, x2, valid, thr)
-        msac = msac_scores_pallas(
-            E_hyp.reshape(n_models, 9), P_op
-        ) + jnp.sum(~valid)
-    else:
-        err = sampson_error_sq(E_hyp, x1, x2)  # (H, M)
-        trunc = jnp.where(valid[None, :], jnp.minimum(err / thr, 1.0), 0.0)
-        # Invalid matches contribute the truncation cap so degenerate inputs
-        # don't look artificially good.
-        msac = jnp.sum(trunc, axis=-1) + jnp.sum(~valid)
+    msac = msac_scores(E_hyp, x1, x2, valid, thr)
     if hyp_ok is not None:
         # Masked 5-point candidates rank last (worst possible score is M).
         msac = jnp.where(hyp_ok, msac, jnp.float32(M + 1))
@@ -277,7 +273,7 @@ def estimate_relative_pose(
     # with an annealed inlier band (16× → 4× → 1× threshold).  A refit is
     # kept only if it improves the MSAC score (monotone guard), and the best
     # model across all starts and rounds wins.  All L starts refit in one
-    # batched solve — this is the TPU replacement for OpenCV's sequential
+    # batched solve — this is the batched replacement for OpenCV's sequential
     # hypothesize-and-verify with local optimisation.
     L = min(4, n_models)
     _, top_h = jax.lax.top_k(-msac, L)
@@ -293,10 +289,7 @@ def estimate_relative_pose(
         w = jnp.where((e2 < mult * thr) & valid[None, :], 1.0, 0.0)
         w = w / jnp.sqrt(jnp.maximum(den, 1e-18))
         E_new = _solve_e_from_rows(rows_b, w.astype(dtype), project=False)
-        e2_new = sampson_error_sq(E_new, x1, x2)
-        msac_new = jnp.sum(
-            jnp.where(valid[None, :], jnp.minimum(e2_new / thr, 1.0), 0.0), axis=-1
-        ) + jnp.sum(~valid)
+        msac_new = msac_scores(E_new, x1, x2, valid, thr)
         better = msac_new < msac_best_l
         E_best_l = jnp.where(better[:, None, None], E_new, E_best_l)
         msac_best_l = jnp.where(better, msac_new, msac_best_l)

@@ -7,13 +7,13 @@ intended composition — Camera → Preprocessor → FeatureDetector →
 FeatureMatcher → PoseEstimator → Map → Backend → Visualizer — survives only
 as commented-out members (``model.hpp:20-27``) and as the de-facto pipeline
 in ``test/frontend/test_pose_estimator.cpp:108-212``.  This module invents
-the orchestration loop the TPU way.
+the orchestration loop the accelerator way.
 
-TPU-first structure (SURVEY §7 step 5):
+Accelerator-first structure (SURVEY §7 step 5):
 
   * the *frame-parallel* work (undistort, detect, describe, match
     consecutive pairs, two-view RANSAC) is ``vmap``-ed over a chunk of B
-    frames — a single jitted program per chunk, keeping the MXU busy;
+    frames — a single jitted program per chunk, keeping the device busy;
   * the only inherently *sequential* part — chaining relative poses into a
     global trajectory — is an ``associative_scan`` over 4×4 matmuls
     (O(log B) depth instead of O(B));
@@ -123,10 +123,10 @@ class SlamPipeline:
     map_window: int = 8
     max_map_points: int = 8192
     # Motion-model GN rounds in the per-frame PnP tracking scan (each
-    # round is ~65 µs of its sequential spine; see model/tracking.py).
+    # round lengthens its sequential spine; see model/tracking.py).
     # 3 rounds (16→8→2 px Huber anneal) measured behaviour-identical to 4
     # on the bench clip — same pose_ok/inlier/used_ransac/absolute_ok
-    # stats to the frame — at +0.6 ms/chunk; the inlier-fraction/coverage
+    # stats to the frame — at one round less; the inlier-fraction/coverage
     # gates + RANSAC fallback bound the damage if a hard frame ever needs
     # the extra round (it then pays the cond, not accuracy).
     pnp_gn_iters: int = 3
@@ -528,8 +528,7 @@ class SlamPipeline:
     ) -> tuple[ChunkResult, VoState]:
         """Scan the chunk program over a whole sequence in one jitted call.
 
-        Per-call dispatch latency (notably over remote-device tunnels)
-        dominates chunked host loops; scanning on-device removes it.
+        Per-call dispatch latency adds up in chunked host loops; scanning on-device removes it.
         Results are stacked along the chunk axis.
         """
 

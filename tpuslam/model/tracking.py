@@ -150,9 +150,7 @@ def pnp_track_chunk(
             # projection within a radius (classic visible-point data
             # association; the Huber-IRLS solve + inlier gates absorb what
             # a descriptorless radius test lets in).  The (M, P) table
-            # costs ~1 ms/frame, so it must not run on healthy frames
-            # (measured: always-on projection read 317 FPS vs ~500+ for
-            # the cond form).
+            # is large, so it must not run on healthy frames.
             n_match_f = jnp.sum(mv.astype(jnp.int32)).astype(jnp.float32)
             need_refresh = jnp.sum(alive.astype(jnp.int32)).astype(
                 jnp.float32
@@ -203,8 +201,7 @@ def pnp_track_chunk(
         # --- absolute pose against the map -----------------------------------
         # Healthy path: seeded Huber-IRLS Gauss-Newton from the two-view
         # pose (motion_pnp) — no hypothesis stage, so the scan's sequential
-        # spine loses RANSAC's 66-round Jacobi chain (measured 7.1 ms of a
-        # 34.9 ms chunk).  RANSAC PnP survives under a ``lax.cond`` for
+        # spine loses RANSAC's 66-round Jacobi chain.  RANSAC PnP survives under a ``lax.cond`` for
         # frames where descent from the prior fails its gates AND the map
         # coverage says an absolute solve could win — only poses and the
         # (M,)-sized correspondence arrays cross the branch boundary.

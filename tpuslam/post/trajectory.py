@@ -5,7 +5,7 @@ The reference ``Visualizer`` is an empty skeleton
 its working visual output lives in tests (``test_pose_estimator.cpp:45-106``).
 This module provides the production equivalents: KITTI-format trajectory
 files and the standard ATE/RPE metrics used as the parity arbiter
-(BASELINE.md north star: ATE RMSE within 5%).
+(BASELINE.json north star: ATE RMSE within 5%).
 """
 
 from __future__ import annotations

@@ -1,28 +1,51 @@
 """ctypes binding for the native C++ frame loader.
 
-Falls back gracefully when the shared library hasn't been built
-(``make -C native``); :class:`tpuslam.pre.stream.FrameStream` uses it
-automatically for directory streams when available.
+The shared library is built from ``native/frameloader.cpp`` at first use
+(``make -C native``, which needs a C++ compiler and the libpng/libjpeg
+headers).  Where it cannot be built, :func:`available` is False and
+:class:`tpuslam.pre.stream.FrameStream` decodes in Python instead.
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
+import subprocess
 from pathlib import Path
 
 import numpy as np
 
-_LIB_PATH = Path(__file__).resolve().parent.parent.parent / "native" / "build" / (
-    "libtpuslam_frameloader.so"
-)
+_NATIVE_DIR = Path(__file__).resolve().parent.parent.parent / "native"
+_LIB_PATH = _NATIVE_DIR / "build" / "libtpuslam_frameloader.so"
 _lib = None
+_build_failed = False
+
+
+def _build() -> bool:
+    """Build the library to a private name and rename it into place, so
+    that concurrent processes never load a half-written file."""
+    global _build_failed
+    if _build_failed:
+        return False
+    tmp = _LIB_PATH.with_name(f"{_LIB_PATH.name}.{os.getpid()}.tmp")
+    try:
+        subprocess.run(
+            ["make", "-s", "-C", str(_NATIVE_DIR), f"OUT={tmp}"],
+            check=True, capture_output=True, timeout=300,
+        )
+        os.replace(tmp, _LIB_PATH)
+        return True
+    except (OSError, subprocess.SubprocessError):
+        _build_failed = True
+        tmp.unlink(missing_ok=True)
+        return False
 
 
 def _load() -> ctypes.CDLL | None:
     global _lib
     if _lib is not None:
         return _lib
-    if not _LIB_PATH.is_file():
+    if not _LIB_PATH.is_file() and not _build():
         return None
     lib = ctypes.CDLL(str(_LIB_PATH))
     lib.fl_open_dir.restype = ctypes.c_void_p

@@ -2,14 +2,16 @@
 
 The reference's only instrumentation is manual ``std::chrono`` wall-clock
 timing inside tests (SURVEY §5).  Here: a ``jax.profiler`` trace context for
-TensorBoard-consumable device traces, and a ``block_until_ready`` FPS
-harness used by the benchmarks.
+TensorBoard-consumable device traces, the reduction of such a trace to
+device busy time, and a ``block_until_ready`` FPS harness used by the
+benchmarks.
 """
 
 from __future__ import annotations
 
 import contextlib
 import time
+from pathlib import Path
 from typing import Callable, Iterator
 
 import jax
@@ -23,6 +25,69 @@ def device_trace(log_dir: str) -> Iterator[None]:
         yield
     finally:
         jax.profiler.stop_trace()
+
+
+# Published peaks per device kind, dense, at the full 700 W power limit
+# (NVIDIA H100 SXM data sheet).  A card set to a lower power limit cannot
+# hold these; report shares with the card's limit beside them.
+PEAKS: dict[str, dict[str, float]] = {
+    "NVIDIA H100 80GB HBM3": {
+        "bf16_flops": 989e12,
+        "int8_ops": 1979e12,
+        "tf32_flops": 495e12,
+        "fp32_flops": 67e12,
+        "hbm_bytes": 3.35e12,
+    },
+}
+
+
+def peaks_for(device_kind: str) -> dict[str, float]:
+    """The peak rates of ``device_kind``; an unknown device is an error."""
+    try:
+        return PEAKS[device_kind]
+    except KeyError:
+        raise ValueError(
+            f"no peak rates for device kind {device_kind!r}; add them to "
+            "tpuslam.utils.profiling.PEAKS with their source"
+        ) from None
+
+
+def _union_ns(intervals: list[tuple[int, int]]) -> int:
+    total, end = 0, None
+    for a, b in sorted(intervals):
+        if end is None or a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total
+
+
+def device_busy_ns(log_dir: str | Path) -> dict[str, int]:
+    """Busy time per GPU in a trace written by :func:`device_trace`.
+
+    Busy is the union of the intervals of the kernels and copies on the
+    device's stream lines (``Stream #...``); the derived module and op
+    lines of the same plane repeat those intervals and are skipped.
+    """
+    paths = sorted(Path(log_dir).glob("plugins/profile/*/*.xplane.pb"))
+    if not paths:
+        raise FileNotFoundError(f"no .xplane.pb under {log_dir}")
+    busy: dict[str, int] = {}
+    for path in paths:
+        data = jax.profiler.ProfileData.from_file(str(path))
+        for plane in data.planes:
+            if not plane.name.startswith("/device:GPU"):
+                continue
+            spans = [
+                (ev.start_ns, ev.start_ns + ev.duration_ns)
+                for line in plane.lines
+                if line.name.startswith("Stream")
+                for ev in line.events
+            ]
+            busy[plane.name] = busy.get(plane.name, 0) + _union_ns(spans)
+    return busy
 
 
 def time_fn(fn: Callable, *args, warmup: int = 1, iters: int = 10) -> dict:
