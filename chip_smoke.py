@@ -237,11 +237,50 @@ def vo_trajectory(device):
         return pipeline.run(FrameStream(IMAGES).batches(5), seed=0)["poses"]
 
 
+def median_ms(fn, n: int = 20) -> float:
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times) * 1e3
+
+
+def report_decoder() -> None:
+    """Which decoder ``FrameStream`` uses for the fixture, and the host time
+    of each decoder on its first frame."""
+    import numpy as np
+
+    from tpuslam.pre.png import read_png_gray
+    from tpuslam.pre.stream import FrameStream
+
+    first = sorted(IMAGES.glob("*.png"))[0]
+    png_line = f"pre/png.py {median_ms(lambda: read_png_gray(first)):.3f} ms"
+    stream = FrameStream(IMAGES)
+    if stream._native is None:
+        try:
+            from tpuslam.pre.native_loader import NativeFrameLoader
+
+            NativeFrameLoader(IMAGES)
+            why = "no error on a second try"
+        except Exception as e:
+            why = f"{type(e).__name__}: {e}"
+        log(f"[main] FrameStream decoder: pre/png.py (native loader unavailable: {why}); "
+            f"first fixture frame: {png_line}")
+        return
+    if not np.array_equal(stream._native.decode_batch(0, 1)[0], read_png_gray(first)):
+        raise AssertionError("the native loader and pre/png.py decode a fixture frame differently")
+    native_ms = median_ms(lambda: stream._native.decode_batch(0, 1))
+    log(f"[main] FrameStream decoder: native loader; first fixture frame: native "
+        f"{native_ms:.3f} ms, {png_line} (median of 20)")
+
+
 def phase_main(work: Path) -> None:
     import jax
 
     from tpuslam.post.trajectory import ate_rmse
 
+    report_decoder()
     cli = load_cli()
     ckpt = work / "slam_pnp.npz"
     modes = [
@@ -280,10 +319,14 @@ def device_ms(fn, args, n: int, work: Path, tag: str) -> float:
     if log_dir.exists():
         raise ValueError(f"trace directory {log_dir} is already used")
     with device_trace(str(log_dir)):
+        t0 = time.perf_counter_ns()
         for _ in range(n):
             out = fn(*args)
         jax.block_until_ready(out)
-    busy = device_busy_ns(log_dir)
+        window = time.perf_counter_ns() - t0
+    busy = device_busy_ns(log_dir, window_ns=window)
+    if len(busy) != 1:
+        raise AssertionError(f"trace {tag}: expected one GPU, got {sorted(busy)}")
     return sum(busy.values()) / n / 1e6
 
 
@@ -367,43 +410,57 @@ def phase_ab(work: Path, batch: int = 16, n_frames: int = 96, reps: int = 7) -> 
 
 
 def stage_device_times(work: Path, frames, config) -> None:
-    """Trace device time of the stages that stay in XLA on the GPU."""
+    """Trace device time of the stages that stay in XLA on the GPU, each
+    through the function the pipeline calls, on one chunk's real keypoints."""
     import jax
     import jax.numpy as jnp
 
-    from tpuslam.frontend.brief import extract_brief_patches_i8, quantized_brief_from_patches
-    from tpuslam.frontend.detector import FeatureDetector, blur_fast_reference
+    from tpuslam.common.camera import Camera
+    from tpuslam.frontend import pose
+    from tpuslam.frontend.brief import (
+        extract_brief_patches_i8, orientations_from_patches, quantized_brief_from_patches,
+    )
+    from tpuslam.frontend.detector import FeatureDetector, blur_fast_batch
     from tpuslam.frontend.fast import select_keypoints
-    from tpuslam.frontend.pose import sampson_error_sq
 
     c = config.detector
     det = FeatureDetector(c)
     blur, corner, score = jax.jit(
-        partial(blur_fast_reference, threshold=c.intensity_threshold,
+        partial(blur_fast_batch, threshold=c.intensity_threshold,
                 contiguous=c.contiguous_pixels_threshold)
     )(frames)
     kps = jax.jit(jax.vmap(partial(
         select_keypoints, nms=c.non_max_suppression, window=c.suppression_window_size,
         max_keypoints=c.max_keypoints,
     )))(corner, score)
+    shape = blur.shape[1:]
     patches = jax.jit(jax.vmap(partial(extract_brief_patches_i8, patch_size=c.patch_size)))
     p = patches(blur, kps)
-    own_bin = jax.jit(jax.vmap(lambda pp, k: quantized_brief_from_patches(
-        pp, k, k.angle, det.pattern, det.bin_weights, c.num_brief_pairs, c.patch_size,
-        c.brief_quantized_bins, blur.shape[1:],
+    angles = jax.jit(jax.vmap(lambda pp, k: orientations_from_patches(
+        pp, det.moment_weights, k, c.patch_size, shape)))
+    a = angles(p, kps)
+    own_bin = jax.jit(jax.vmap(lambda pp, k, aa: quantized_brief_from_patches(
+        pp, k, aa, det.pattern, det.bin_weights, c.num_brief_pairs, c.patch_size,
+        c.brief_quantized_bins, shape,
     )))
-    h, m = config.pose.num_hypotheses, c.max_keypoints
-    key = jax.random.PRNGKey(0)
-    e = jax.random.normal(key, (frames.shape[0], h, 3, 3))
-    x1 = jax.random.uniform(key, (frames.shape[0], m, 2), minval=-0.5, maxval=0.5)
-    x2 = x1 + 0.01
-    msac = jax.jit(jax.vmap(
-        lambda ee, a, b: jnp.sum(jnp.minimum(sampson_error_sq(ee, a, b) / 1e-6, 1.0), -1)
-    ))
+    describe = jax.jit(jax.vmap(det._describe))
+    # MSAC on matches shaped as the pipeline's: M = max_keypoints normalised
+    # points, half of them valid, against num_hypotheses models.
+    h, m, b = config.pose.num_hypotheses, c.max_keypoints, frames.shape[0]
+    k1, k2, k3 = jax.random.split(jax.random.PRNGKey(0), 3)
+    e = jax.random.normal(k1, (b, h, 3, 3))
+    x1 = jax.random.uniform(k2, (b, m, 2), minval=-0.5, maxval=0.5)
+    x2 = x1 + 0.01 * jax.random.normal(k3, (b, m, 2))
+    valid = jnp.broadcast_to(jnp.arange(m) < m // 2, (b, m))
+    camera = Camera.from_yaml(REPO_ROOT / "configs" / "camera.yml")
+    thr = (config.pose.inlier_threshold_px / (0.5 * (camera.fx + camera.fy))) ** 2
+    msac = jax.jit(jax.vmap(partial(pose.msac_scores, thr=thr)))
     for name, fn, args in (
         (f"patch gather (16 x {m} patches)", patches, (blur, kps)),
-        (f"own-bin BRIEF dots ({c.brief_quantized_bins} bins)", own_bin, (p, kps)),
-        (f"MSAC scoring (16 x {h} x {m})", msac, (e, x1, x2)),
+        ("orientation moments", angles, (p, kps)),
+        (f"own-bin BRIEF dots ({c.brief_quantized_bins} bins)", own_bin, (p, kps, a)),
+        ("describe (gather + orientation + own-bin BRIEF)", describe, (blur, kps)),
+        (f"MSAC scoring (16 x {h} x {m})", msac, (e, x1, x2, valid)),
     ):
         log(f"[ab] {name}: device {device_ms(fn, args, 20, work, name.split()[0]):.4f} ms per chunk")
 

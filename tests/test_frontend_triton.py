@@ -82,6 +82,17 @@ def test_kernel_rejects_bad_contiguous():
         )
 
 
+def test_kernel_rejects_int32_offset_overflow():
+    """Flat pixel offsets are int32: 2^31 pixels in one call are refused
+    when traced, before anything is allocated."""
+    big = jax.ShapeDtypeStruct((2**11, 2**10, 2**10), jnp.uint8)
+    with pytest.raises(ValueError, match="2\\^31"):
+        jax.eval_shape(lambda x: fused_frontend_batch(x, interpret=True, **ARGS), big)
+    ok = jax.ShapeDtypeStruct((2**11 - 1, 2**10, 2**10), jnp.uint8)
+    out = jax.eval_shape(lambda x: fused_frontend_batch(x, interpret=True, **ARGS), ok)
+    assert [o.shape for o in out] == [ok.shape] * 3
+
+
 def test_describe_matches_per_frame_quantized_path(kitti_frames):
     """The detector's one orientation+BRIEF path (patch moments + own-bin
     dots from one patch extraction) equals the map-based orientation and

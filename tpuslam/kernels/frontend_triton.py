@@ -158,6 +158,11 @@ def fused_frontend_batch(
     if not 1 <= contiguous <= 16:
         raise ValueError(f"contiguous must be in [1, 16], got {contiguous}")
     bsz, h, w = images.shape
+    if bsz * h * w >= 2**31:
+        # the kernel's flat offsets are int32
+        raise ValueError(
+            f"{bsz}x{h}x{w} frames hold 2^31 pixels or more; split the batch"
+        )
     k2d = gaussian_kernel()
     taps = tuple(
         (dy - BLUR_HALF, dx - BLUR_HALF, float(k2d[dy, dx]))

@@ -10,6 +10,7 @@ benchmarks.
 from __future__ import annotations
 
 import contextlib
+import re
 import time
 from pathlib import Path
 from typing import Callable, Iterator
@@ -64,30 +65,46 @@ def _union_ns(intervals: list[tuple[int, int]]) -> int:
     return total
 
 
-def device_busy_ns(log_dir: str | Path) -> dict[str, int]:
-    """Busy time per GPU in a trace written by :func:`device_trace`.
+def busy_from_planes(planes, window_ns: int | None = None) -> dict[str, int]:
+    """Busy time per GPU of profiler planes (``.name``, ``.lines``).
 
     Busy is the union of the intervals of the kernels and copies on the
-    device's stream lines (``Stream #...``); the derived module and op
-    lines of the same plane repeat those intervals and are skipped.
+    device's stream lines (``Stream #...``), taken over every plane that
+    names the device, so an interval recorded twice counts once; the
+    derived module and op lines repeat those intervals and are skipped.
+    ``window_ns``, the length of the traced region, bounds each device's
+    busy time: a busier device means the trace holds work from outside the
+    region, and is an error.
     """
+    spans: dict[str, list[tuple[int, int]]] = {}
+    for plane in planes:
+        device = re.match(r"/device:GPU:\d+", plane.name)
+        if device is None:
+            continue
+        spans.setdefault(device.group(), []).extend(
+            (ev.start_ns, ev.start_ns + ev.duration_ns)
+            for line in plane.lines
+            if line.name.startswith("Stream")
+            for ev in line.events
+        )
+    busy = {device: _union_ns(s) for device, s in spans.items()}
+    over = {d: b for d, b in busy.items() if window_ns is not None and b > window_ns}
+    if over:
+        raise ValueError(
+            f"device busy {over} ns exceeds the traced window of {window_ns} ns"
+        )
+    return busy
+
+
+def device_busy_ns(
+    log_dir: str | Path, window_ns: int | None = None
+) -> dict[str, int]:
+    """:func:`busy_from_planes` over a trace written by :func:`device_trace`."""
     paths = sorted(Path(log_dir).glob("plugins/profile/*/*.xplane.pb"))
     if not paths:
         raise FileNotFoundError(f"no .xplane.pb under {log_dir}")
-    busy: dict[str, int] = {}
-    for path in paths:
-        data = jax.profiler.ProfileData.from_file(str(path))
-        for plane in data.planes:
-            if not plane.name.startswith("/device:GPU"):
-                continue
-            spans = [
-                (ev.start_ns, ev.start_ns + ev.duration_ns)
-                for line in plane.lines
-                if line.name.startswith("Stream")
-                for ev in line.events
-            ]
-            busy[plane.name] = busy.get(plane.name, 0) + _union_ns(spans)
-    return busy
+    data = [jax.profiler.ProfileData.from_file(str(p)) for p in paths]
+    return busy_from_planes([pl for d in data for pl in d.planes], window_ns)
 
 
 def time_fn(fn: Callable, *args, warmup: int = 1, iters: int = 10) -> dict:
